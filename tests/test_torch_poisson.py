@@ -1,0 +1,135 @@
+"""Port ops/poisson.py — the plain version of kernel K1 — vs the JAX
+package and vs exact distributions.
+
+* the shifted-Stirling gammaln against scipy and the JAX twin;
+* the cancellation-free PTRS log-pmf against the JAX function;
+* the sampler's mean and variance z-scores at the rates the kernel's
+  validation artifact covers (artifacts/pallas_poisson_validation.json),
+  and the inversion path against the exact pmf;
+* the Philox4x32-10 mirror against Random123's known-answer vectors (the
+  CUDA generator is held to the same vectors on the card);
+* the stream contract: draws are a function of (seed, element index).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy import stats
+from scipy.special import gammaln as sp_gammaln
+
+from mcmctoffitting_tpu.ops.pallas_poisson import _gammaln_stirling as j_stir
+from mcmctoffitting_tpu.ops.poisson import _ptrs_log_pmf as j_log_pmf
+from mcmctoffitting_tpu_torch.ops import poisson as tp
+from mcmctoffitting_tpu_torch.ops.cuda_poisson import poisson
+
+torch.set_num_threads(1)
+
+
+def test_gammaln_stirling_vs_scipy_and_jax():
+    x = np.concatenate([np.arange(1.0, 20.0, 0.25),
+                        np.geomspace(20.0, 1.0e6, 400)])
+    got = tp._gammaln_stirling(torch.as_tensor(x, dtype=torch.float32))
+    got = got.numpy().astype(np.float64)
+    # f32 evaluation: a few ulps of the O(gammaln) operands (the JAX
+    # package's own test of the twin uses the same bound)
+    np.testing.assert_allclose(got, sp_gammaln(x), rtol=3e-6, atol=3e-6)
+    want = np.asarray(j_stir(jnp.asarray(x, jnp.float32)), np.float64)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("lam", [10.0, 37.5, 100.0, 1.0e3, 1.0e4, 1.0e5,
+                                 2.0e5])
+def test_ptrs_log_pmf_vs_jax(lam):
+    """Over the PTRS proposal's bulk (|k - lam| <= 6 sigma, where the
+    slow-accept test decides) and the small-k tail."""
+    sd = np.sqrt(lam)
+    k = np.concatenate([np.arange(0.0, 12.0),
+                        np.floor(np.linspace(max(0.0, lam - 6 * sd),
+                                             lam + 6 * sd, 401))])
+    k = k.astype(np.float32)
+    lam_a = np.full_like(k, lam)
+    got = tp._ptrs_log_pmf(torch.as_tensor(k), torch.as_tensor(lam_a),
+                           torch.log(torch.as_tensor(lam_a))).numpy()
+    want = np.asarray(j_log_pmf(jnp.asarray(k), jnp.asarray(lam_a),
+                                jnp.log(jnp.asarray(lam_a))))
+    np.testing.assert_allclose(got, want, rtol=0.0, atol=1e-4)
+    # and both against the exact log-pmf at the mode's neighbourhood
+    bulk = np.abs(k - lam) <= 3 * sd
+    np.testing.assert_allclose(
+        got[bulk], stats.poisson.logpmf(k[bulk].astype(np.float64), lam),
+        atol=2e-3)
+
+
+@pytest.mark.parametrize("lam", [0.5, 5.0, 10.0, 100.0, 1.0e4, 2.0e5])
+def test_sampler_moments(lam):
+    n = 100_000
+    x = tp.poisson_ptrs(torch.full((n,), lam), (12345, int(lam * 10)))
+    x = x.numpy().astype(np.float64)
+    assert np.all(x == np.floor(x)) and np.all(x >= 0)
+    z_mean = (x.mean() - lam) / np.sqrt(lam / n)
+    z_var = (x.var(ddof=1) - lam) / np.sqrt((lam + 2 * lam * lam) / n)
+    assert abs(z_mean) < 4 and abs(z_var) < 4, (z_mean, z_var)
+
+
+def test_inversion_path_matches_pmf():
+    lam, n = 3.0, 200_000
+    x = tp.poisson_ptrs(torch.full((n,), lam), (7, 8)).numpy()
+    k = np.arange(12)
+    observed = np.array([np.sum(x == v) for v in k[:-1]]
+                        + [np.sum(x >= k[-1])])
+    p = stats.poisson.pmf(k, lam)
+    p[-1] = stats.poisson.sf(k[-1] - 1, lam)
+    chi2 = np.sum((observed - n * p) ** 2 / (n * p))
+    assert stats.chi2.sf(chi2, len(k) - 1) > 1e-4, chi2
+
+
+def test_zero_nan_and_negative_rates_draw_zero():
+    lam = torch.tensor([0.0, -3.0, float("nan"), 0.0])
+    np.testing.assert_array_equal(tp.poisson_ptrs(lam, (1, 2)).numpy(), 0.0)
+
+
+M32 = 0xFFFFFFFF
+KAT = [  # Random123 Philox4x32-10: (counter, key) -> output
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((M32, M32, M32, M32), (M32, M32),
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+]
+
+
+@pytest.mark.parametrize("counter,key,want", KAT)
+def test_philox_known_answers(counter, key, want):
+    ctr = tuple(torch.tensor([c], dtype=torch.int64) for c in counter)
+    got = tp.philox4x32_10(ctr, key)
+    assert tuple(int(w) for w in got) == want
+
+
+def test_stream_is_keyed_by_seed_and_element():
+    lam = torch.as_tensor(np.geomspace(0.1, 3e5, 4096).astype(np.float32))
+    full = tp.poisson_ptrs(lam, (3, 4))
+    # element i's draw depends on (seed, i) only, not on the array's size
+    np.testing.assert_array_equal(tp.poisson_ptrs(lam[:1000], (3, 4)),
+                                  full[:1000])
+    np.testing.assert_array_equal(
+        tp.poisson_ptrs(lam.reshape(64, 64), (3, 4)).reshape(-1), full)
+    assert not torch.equal(tp.poisson_ptrs(lam, (3, 5)), full)
+
+
+def test_cpu_dispatch_takes_plain_version():
+    lam = torch.linspace(0.0, 500.0, 257)
+    before = poisson.launches
+    np.testing.assert_array_equal(poisson(lam, (9, 10)).numpy(),
+                                  tp.poisson_ptrs(lam, (9, 10)).numpy())
+    assert poisson.launches == before
+
+
+def test_seed_words_come_from_a_host_generator():
+    gen = torch.Generator().manual_seed(0)
+    words = [tp.seed_words(gen) for _ in range(4)]
+    assert all(0 <= w < 2 ** 32 for pair in words for w in pair)
+    assert len(set(words)) == 4
+    again = torch.Generator().manual_seed(0)
+    assert tp.seed_words(again) == words[0]
