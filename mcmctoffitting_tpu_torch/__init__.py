@@ -8,17 +8,18 @@ mean the same thing.
 
 Rules of the port:
 
-* it imports ``torch`` and never ``jax``; the only modules it shares with
-  the JAX package are the jax-free ``constants`` and ``config``;
+* it imports ``torch`` and never ``jax``, and nothing of the JAX package:
+  it keeps its own copies of ``constants`` and ``config``;
 * every op is batch-native: a leading walker axis, then a run axis,
   ``(W, R, ...)``;
 * every hand-written kernel (``csrc/``, wrapped in ``ops/cuda_*.py``)
   dispatches on the device of its input alone: a CPU tensor takes the
   kernel's plain PyTorch version, a CUDA tensor launches the kernel or
   raises — there is no fallback;
-* devices and random generators are always passed explicitly.
+* entry points run on the card (``device='cuda'``) unless the caller asks
+  for the CPU; random generators are always passed explicitly.
 """
 
 __version__ = "0.1.0"
 
-from mcmctoffitting_tpu import config, constants  # noqa: F401  (jax-free)
+from . import config, constants  # noqa: F401

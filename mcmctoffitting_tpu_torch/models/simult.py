@@ -1,9 +1,10 @@
 """The simultFit joint multi-standoff fit: theta = (beamE, eLoss, scale, s,
 N_1..N_nruns), one spectrum and one binned Poisson likelihood per run.
 
-Port of ``mcmctoffitting_tpu/models/simult.py`` for ``sampling='counts'``:
-the same preset (:func:`default_spec`), bounds, guesses and walker
-initialisation, and a batched log-probability over (W, D) walkers.
+Port of ``mcmctoffitting_tpu/models/simult.py`` for ``sampling='counts'``
+and for ``sampling='mc'`` with ``transport='rk4'``: the same preset
+(:func:`default_spec`), bounds, guesses and walker initialisation, and a
+batched log-probability over (W, D) walkers.
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcmctoffitting_tpu.config import SIMULTFIT_ED_BINNING, SIMULTFIT_X_BINNING
-from mcmctoffitting_tpu.constants import TUNL_SSA_CSI, TofWindow, tof_windows
+from ..config import SIMULTFIT_ED_BINNING, SIMULTFIT_X_BINNING
+from ..constants import TUNL_SSA_CSI, TofWindow, tof_windows
 
 from ..ops.e0grid import cached_e0_grid_table
 from ..ops.likelihoods import (box_lnprior, poisson_binned_loglike,
@@ -23,7 +24,7 @@ from ..ops.likelihoods import (box_lnprior, poisson_binned_loglike,
 from ..ops.stopping import StoppingTable, d2_gas_stopping
 from ..ops.timing import ExGaussianTiming
 from ..ops.xs import ddn_xs_uniform
-from .forward import ForwardSpec, ForwardTables, TofForward, not_ported
+from .forward import ForwardSpec, ForwardTables, TofForward, resolve_device
 
 # run index -> standoff name (and window name)
 RUN_LAYOUT = ("mid", "close", "close", "far", "production")
@@ -54,14 +55,20 @@ def default_spec(n_samples: int = 200_000, *,
                  sampling: str = "mc") -> ForwardSpec:
     """Forward spec for the simultFit campaign (the JAX preset's values).
 
-    The port runs ``sampling='counts'``; the JAX default 'mc' and the
-    'expected' estimator raise until ROADMAP slice 2 adds them.  F = 512
-    fine cells at >= 100k draws, 1024 below, unless ``fine_grid`` is set.
+    The port runs ``sampling='counts'`` (``transport='table'``, the e0grid
+    operator, F = 512 fine cells at >= 100k draws, 1024 below, unless
+    ``fine_grid`` is set) and ``sampling='mc'`` on the literal ODE path
+    (``transport='rk4'``, one RK4 substep per x interval), where an
+    'e0grid' ``xs_mode`` falls back to 'taylor' as in the JAX package.  The
+    JAX default, mc with ``transport='table'``, and the 'expected'
+    estimator raise until ROADMAP slice 2 adds them.
     """
-    if transport != "table":
-        raise not_ported(f"transport={transport!r}", "slice 5")
     rho = 8.565e-5
     if sampling in ("expected", "counts"):
+        if transport != "table":
+            raise ValueError(f"sampling='{sampling}' requires "
+                             "transport='table' (the closed-form moments "
+                             "ride the e0grid preimage operator)")
         xs_mode = "e0grid"
     if sampling == "counts":
         e0_grid_fine = 512 if n_samples >= 100_000 else 1024
@@ -69,12 +76,17 @@ def default_spec(n_samples: int = 200_000, *,
         e0_grid_fine = 256
     if fine_grid is not None:
         e0_grid_fine = int(fine_grid)
-    table = _build_table(rho)
+    if xs_mode == "e0grid" and transport != "table":
+        xs_mode = "taylor"  # the e0grid preimages invert the stopping table
+    table = _build_table(rho) if transport == "table" else None
     spec = ForwardSpec(
         geometry=TUNL_SSA_CSI,
         ed_binning=SIMULTFIT_ED_BINNING,
         x_binning=SIMULTFIT_X_BINNING,
+        stopping=d2_gas_stopping(rho=rho),
+        transport=transport,
         stopping_table=table,
+        rk4_substeps=1,
         beam_timing=ExGaussianTiming(),
         zero_degree="segments",
         cell_attenuation=False,
@@ -83,6 +95,8 @@ def default_spec(n_samples: int = 200_000, *,
         e0_grid_fine=e0_grid_fine,
         sampling=sampling,
     )                     # raises here for what the port does not run yet
+    if xs_mode != "e0grid":
+        return spec
     return dataclasses.replace(spec, e0_grid_table=cached_e0_grid_table(
         table, SIMULTFIT_ED_BINNING, ddn_xs_uniform, e0_grid_fine))
 
@@ -102,10 +116,12 @@ class SimultFitProblem:
     JAX default) or 'poisson' (the corrected Poisson logpmf).
     ``tables``: forward tables to use instead of the ones the port builds
     (``models.forward.forward_tables_from_numpy``).
+    ``device``: the GPU unless the caller asks for the CPU (without a GPU
+    the default raises; it never falls back to the CPU).
     """
 
     def __init__(self, spec: ForwardSpec, n_runs: int = 4,
-                 likelihood: str = "reference", *, device,
+                 likelihood: str = "reference", *, device="cuda",
                  tables: ForwardTables | None = None):
         if likelihood not in ("reference", "poisson"):
             raise ValueError(f"unknown likelihood {likelihood!r} "
@@ -113,7 +129,7 @@ class SimultFitProblem:
         self.spec = spec
         self.n_runs = n_runs
         self.likelihood = likelihood
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._tables = tables
 
     @property

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, for Hopper (``sm_90a``), on first use; ``ctypes`` loads it.
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all
+started together) and links them into one shared library with a plain C
+interface, for Hopper (``sm_90a``), on first use; ``ctypes`` loads it.
 The build is keyed on a hash of the sources and flags and goes to
 ``build/kernels/<hash>/`` at the root of the checkout (listed in
 ``.gitignore``), so a fresh checkout builds everything from its own
@@ -31,21 +32,31 @@ _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _LIB_NAME = "libmcmctof_kernels.so"
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns cudaError_t as int)
 _SIGNATURES = {
     # lam, out, n, seed0, seed1, device, stream
-    "mcmctof_poisson": [_P, _P, ctypes.c_longlong, ctypes.c_uint32,
+    "mcmctof_poisson": [_P, _P, _L, ctypes.c_uint32,
                         ctypes.c_uint32, _I, _P],
     # counter/key words (n, 6), out words (n, 4), n, device, stream
-    "mcmctof_philox": [_P, _P, ctypes.c_longlong, _I, _P],
+    "mcmctof_philox": [_P, _P, _L, _I, _P],
     # base, draws, zt, zw, lo, hi, scale, nb1, out,
     # n_rows, n_runs, n_cells, n_ed, n_seg, n_pad, device, stream
     "mcmctof_tof_hist": [_P] * 9 + [_I] * 7 + [_P],
+    # values, weights, out, n_rows, row_len, n_valid, lo, hi, scale,
+    # n_bins, device, stream
+    "mcmctof_weighted_hist": [_P, _P, _P, _I, _L, _L, _F, _F, _F, _I, _I,
+                              _P],
+    # e0, steps, out, e_out, n_rows, n, n_x, n_sub, n_bins, a, p, q,
+    # floor, lo, hi, inv_width, n_split, device, stream
+    "mcmctof_transport_moments": [_P] * 4 + [_I, _L, _I, _I, _I]
+    + [_F] * 7 + [_I, _I, _P],
 }
 
 
@@ -72,7 +83,7 @@ def _nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -87,6 +98,34 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
+def _compile_and_link(tmp_dir: Path) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link;
+    returns the compilers' output (the ptxas resource report)."""
+    nvcc = _nvcc()
+    procs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = tmp_dir / (src.stem + ".o")
+        procs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], False
+    for _, proc in procs:
+        logs.append(proc.communicate()[0])
+        failed |= proc.returncode != 0
+    log = "".join(logs)
+    if failed:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    link = subprocess.run(
+        [nvcc, *NVCC_LINK_FLAGS, "-o", str(tmp_dir / _LIB_NAME),
+         *(str(obj) for obj, _ in procs)], capture_output=True, text=True)
+    if link.returncode:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    return log
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; cached per process."""
@@ -95,19 +134,12 @@ def load_library() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+        tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu],
-            capture_output=True, text=True)
+        log = _compile_and_link(tmp_dir)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)   # atomic: concurrent builds race safely
+        os.replace(tmp_dir / _LIB_NAME, path)   # atomic: builds race safely
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,7 +1,9 @@
-"""Fixed-range weighted histograms over per-run TOF windows.
+"""Fixed-range weighted histograms.
 
-Port of ``weighted_histogram_multi_window`` and ``histogram_density`` of
-``mcmctoffitting_tpu/ops/histogram.py``.  The JAX package builds its
+Port of ``weighted_histogram``, ``weighted_histogram_multi_window`` and
+``histogram_density`` of ``mcmctoffitting_tpu/ops/histogram.py``.
+``weighted_histogram`` (one range over the trailing axis) dispatches by
+device to kernel K3 and lives with it in ``ops/cuda_hist.py``.  The JAX package builds its
 histograms as one-hot matmuls for the TPU's matrix unit; here they are a
 plain ``scatter_add_``, summed in float32.  Semantics are np.histogram's: values
 outside [lo, hi] are dropped and a value equal to ``hi`` lands in the last
@@ -14,6 +16,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .cuda_hist import weighted_histogram  # noqa: F401  (dispatch to K3)
 
 
 class WindowConstants(NamedTuple):

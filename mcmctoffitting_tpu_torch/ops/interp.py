@@ -1,16 +1,18 @@
-"""Cubic-spline construction and host evaluation (numpy, f64).
+"""Cubic-spline construction and evaluation.
 
-Port of the host half of ``mcmctoffitting_tpu/ops/interp.py``: the
-not-a-knot coefficient solve and the f64 ``eval_np`` of both spline
-classes, with the same arithmetic so the tables they feed are bitwise equal
-to the JAX package's.  The counts path evaluates no spline on the device,
-so the device-side ``__call__`` of the JAX classes is not ported.
+Port of ``mcmctoffitting_tpu/ops/interp.py``: the not-a-knot coefficient
+solve and the f64 ``eval_np`` of both spline classes (with the uniform
+spline's derivatives), with the same arithmetic so the tables they feed
+are bitwise equal to the JAX package's, and the uniform spline's
+per-sample ``__call__`` on tensors (the cross-section weights of
+``xs_mode='exact'``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def cubic_spline_coeffs(x: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -126,8 +128,16 @@ class UniformCubicSpline1D:
         return cls(lo, step, np.stack([n3, n2, n1, n0]),
                    spline.lo_clamp, spline.hi_clamp)
 
-    def eval_np(self, t):
-        """Host f64 evaluation."""
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-sample evaluation on a tensor of any shape, in its dtype:
+        clamp, arithmetic cell index, Horner (the JAX package's
+        ``__call__``)."""
+        return eval_uniform_spline(
+            self, t, torch.as_tensor(self.coeffs, dtype=t.dtype,
+                                     device=t.device))
+
+    def eval_np(self, t, *, derivatives: bool = False):
+        """Host f64 evaluation with optional 1st-3rd derivatives."""
         t = np.asarray(t, dtype=np.float64)
         tc = np.clip(t, self.lo_clamp, self.hi_clamp) \
             if (self.lo_clamp is not None or self.hi_clamp is not None) else t
@@ -136,7 +146,16 @@ class UniformCubicSpline1D:
                       0, n_cells - 1)
         dt = tc - (self.lo + self.step * idx)
         c3, c2, c1, c0 = (self.coeffs[k][idx] for k in range(4))
-        return ((c3 * dt + c2) * dt + c1) * dt + c0
+        val = ((c3 * dt + c2) * dt + c1) * dt + c0
+        if not derivatives:
+            return val
+        d1 = (3 * c3 * dt + 2 * c2) * dt + c1
+        d2 = 6 * c3 * dt + 2 * c2
+        d3 = 6 * c3
+        if self.lo_clamp is not None:
+            const = (t < self.lo_clamp) | (t > self.hi_clamp)
+            d1, d2, d3 = (np.where(const, 0.0, d) for d in (d1, d2, d3))
+        return val, d1, d2, d3
 
     def __hash__(self):   # a key of the e0-grid operator cache
         return hash((self.lo, self.step, self.coeffs.tobytes(),
@@ -146,3 +165,16 @@ class UniformCubicSpline1D:
         return (isinstance(other, UniformCubicSpline1D)
                 and self.lo == other.lo and self.step == other.step
                 and np.array_equal(self.coeffs, other.coeffs))
+
+
+def eval_uniform_spline(spline: UniformCubicSpline1D, t: torch.Tensor,
+                        coeffs: torch.Tensor) -> torch.Tensor:
+    """``spline(t)`` with its (4, n_cells) coefficients already on
+    ``t``'s device and dtype (a buffer of the caller)."""
+    if spline.lo_clamp is not None or spline.hi_clamp is not None:
+        t = torch.clamp(t, spline.lo_clamp, spline.hi_clamp)
+    idx = torch.clamp(((t - spline.lo) / spline.step).to(torch.int32),
+                      0, coeffs.shape[1] - 1).long()
+    dt = t - (spline.lo + spline.step * idx.to(t.dtype))
+    c3, c2, c1, c0 = (coeffs[k][idx] for k in range(4))
+    return ((c3 * dt + c2) * dt + c1) * dt + c0

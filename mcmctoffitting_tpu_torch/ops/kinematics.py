@@ -11,7 +11,7 @@ import math
 import numpy as np
 import torch
 
-from mcmctoffitting_tpu.constants import masses, physics, q_values
+from ..constants import masses, physics, q_values
 
 
 def dd_neutron_energy(deuteron_energy: torch.Tensor,

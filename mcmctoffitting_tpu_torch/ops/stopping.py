@@ -1,20 +1,28 @@
-"""Bethe stopping in the deuterium gas and the E(E0, x) transport table.
+"""Bethe stopping in the deuterium gas, per-sample RK4 transport and the
+E(E0, x) transport table.
 
-Port of the host half of ``mcmctoffitting_tpu/ops/stopping.py``: the
-material constants, the f64 RK4 used to build the table and the table's
-spline coefficients, with the same arithmetic so the tables are bitwise
-equal to the JAX package's.  The counts path reads the table only through
-the e0-grid operator (``ops/e0grid.py``), so per-sample transport
-(``eval_stopped``, ``rk4_transport``) is not ported.
+Port of ``mcmctoffitting_tpu/ops/stopping.py``: the material constants,
+``BetheStopping.dedx``, ``rk4_transport``, the f64 RK4 used to build the
+table and the table's spline coefficients (host arithmetic equal to the
+JAX package's, so the tables are bitwise equal), plus the closed form
+dE/dx = -(A/E)(P + Q ln E) of ``ops/pallas_forward.py``.
+
+The mc path transports every sample with the closed form, in float32, in
+the operation order of kernel K4 (``csrc/transport_moments.cu``), so the
+plain version and the kernel round alike.  The table lookup of the counts
+path (``eval_stopped``) is not ported: the counts path reads the table
+only through the e0-grid operator (``ops/e0grid.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
-from mcmctoffitting_tpu.constants import masses, physics
-
+from ..constants import masses, physics
 from .interp import cubic_spline_coeffs
 
 AVOGADRO = 6.02214076e23
@@ -39,6 +47,110 @@ class BetheStopping:
             AVOGADRO * Z * rho / (A * physics.molar_mass_constant)
             for (Z, A, rho, _) in self.materials
         ])
+
+    def dedx(self, energy: torch.Tensor) -> torch.Tensor:
+        """Stopping power dE/dx in keV/cm (negative) at deuteron energies
+        in keV: the full Bethe formula, as the JAX package writes it."""
+        c2 = physics.speed_of_light ** 2
+        v2 = 2.0 * energy / self.ion_mass * c2
+        leading = (4.0 * math.pi * self.ion_charge ** 2
+                   / (masses.electron * c2 * v2))
+        n_e = torch.as_tensor(self._electron_densities(), dtype=energy.dtype,
+                              device=energy.device)
+        exc = torch.as_tensor([m[3] for m in self.materials],
+                              dtype=energy.dtype, device=energy.device)
+        log_arg = 2.0 * masses.electron / c2 * v2[..., None] / exc
+        contributions = torch.sum(n_e * torch.log(log_arg), dim=-1)
+        return -leading * FIXED_FACTOR * contributions
+
+
+def bethe_closed_form_constants(stopping: BetheStopping):
+    """(A, P, Q), host floats, with dE/dx = -(A/E) (P + Q ln E): the
+    algebraic reduction of :meth:`BetheStopping.dedx` with v^2 = 2 E c^2 /
+    m_ion (the arithmetic of the JAX package's
+    ``ops/pallas_forward.py::bethe_closed_form_constants``)."""
+    c2 = physics.speed_of_light ** 2
+    a = (FIXED_FACTOR * 4.0 * np.pi * stopping.ion_charge ** 2
+         * stopping.ion_mass / (2.0 * masses.electron * c2 * c2))
+    n_e = stopping._electron_densities()
+    excitations = np.array([m[3] for m in stopping.materials])
+    q = float(n_e.sum())
+    p = float(np.sum(n_e * np.log(4.0 * masses.electron
+                                  / (stopping.ion_mass * excitations))))
+    return float(a), p, q
+
+
+def _f32(x: float) -> float:
+    """A host float rounded to float32, as the kernels receive it."""
+    return float(np.float32(x))
+
+
+class RK4Constants(NamedTuple):
+    """Everything the transport needs, as float32 values (Python floats
+    that are exact in float32): the closed-form (A, P, Q), the energy
+    floor, and per x interval the step h, h/2 and h/6 (host f64, rounded
+    once)."""
+
+    a: float
+    p: float
+    q: float
+    energy_floor: float
+    n_substeps: int
+    h: tuple[float, ...]
+    half_h: tuple[float, ...]
+    sixth_h: tuple[float, ...]
+
+
+def rk4_constants(stopping: BetheStopping, x_eval, n_substeps: int,
+                  energy_floor: float = 20.0,
+                  bethe=None) -> RK4Constants:
+    """Float32 constants of :func:`rk4_transport` and kernel K4 through
+    the depths ``x_eval`` (from x = 0); ``bethe`` overrides the (A, P, Q)
+    computed from ``stopping``."""
+    a, p, q = (bethe_closed_form_constants(stopping) if bethe is None
+               else bethe)
+    x_eval = np.asarray(x_eval, np.float64)
+    spans = np.diff(np.concatenate([[0.0], x_eval]))
+    h = [s / n_substeps for s in spans.tolist()]
+    return RK4Constants(_f32(a), _f32(p), _f32(q), _f32(energy_floor),
+                        int(n_substeps), tuple(_f32(v) for v in h),
+                        tuple(_f32(0.5 * v) for v in h),
+                        tuple(_f32(v / 6.0) for v in h))
+
+
+def closed_form_dedx(c: RK4Constants, e: torch.Tensor) -> torch.Tensor:
+    """-(A/E) (P + Q ln E) at E = max(e, floor), float32, in K4's order:
+    A/E is a true division (a scalar numerator divides exactly on every
+    device), then the product with (P + Q ln E)."""
+    e = torch.clamp_min(e, c.energy_floor)
+    a = torch.tensor(c.a, dtype=e.dtype)
+    return -(a / e) * (c.q * torch.log(e) + c.p)
+
+
+def rk4_transport(c: RK4Constants, e0: torch.Tensor) -> torch.Tensor:
+    """Fixed-step RK4 of the closed-form dE/dx through the x depths:
+    (..., N) initial energies -> (..., M, N) energies at each depth.
+
+    Operation order of the JAX package's ``rk4_transport`` and of K4:
+    a sample at or below the floor is frozen; k1..k4 clamp their argument
+    to the floor inside dE/dx; e_new = max(e + h/6 (k1 + 2 k2 + 2 k3 + k4),
+    floor).
+    """
+    floor = c.energy_floor
+    e = e0
+    out = []
+    for h, half_h, sixth_h in zip(c.h, c.half_h, c.sixth_h):
+        for _ in range(c.n_substeps):
+            stopped = e <= floor
+            k1 = closed_form_dedx(c, e)
+            k2 = closed_form_dedx(c, e + half_h * k1)
+            k3 = closed_form_dedx(c, e + half_h * k2)
+            k4 = closed_form_dedx(c, e + h * k3)
+            step = ((k1 + 2.0 * k2) + 2.0 * k3) + k4
+            e_new = torch.clamp_min(e + sixth_h * step, floor)
+            e = torch.where(stopped, e, e_new)
+        out.append(e)
+    return torch.stack(out, dim=-2)
 
 
 def d2_gas_stopping(rho: float = 8.565e-5) -> BetheStopping:

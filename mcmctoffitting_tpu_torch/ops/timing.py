@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from mcmctoffitting_tpu.constants import TUNL_SSA_CSI, masses
+from ..constants import TUNL_SSA_CSI, masses
 
 from .kinematics import tof_np
 

@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from mcmctoffitting_tpu.constants import tof_windows
+from mcmctoffitting_tpu_torch.config import SIMULTFIT_X_BINNING
+from mcmctoffitting_tpu_torch.constants import tof_windows
+from mcmctoffitting_tpu_torch.ops import cuda_hist, cuda_transport
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
+from mcmctoffitting_tpu_torch.ops import stopping
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import philox_cuda, poisson
 from mcmctoffitting_tpu_torch.ops.cuda_tof import (tof_hist_segments,
                                                    tof_hist_segments_plain)
@@ -67,3 +70,42 @@ def test_tof_kernel_matches_plain(dev):
     want = tof_hist_segments_plain(base, draws, zt, zw, win)
     total = (draws[..., None] * zw).sum(dim=(-3, -2, -1)).max().item()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * total)
+
+
+def test_weighted_hist_kernel_matches_plain(dev):
+    rng = np.random.default_rng(1)
+    v = torch.as_tensor(rng.uniform(150, 1250, (64, 10, 5000)).astype(
+        np.float32), device=dev)
+    w = torch.as_tensor(rng.uniform(0, 40, v.shape).astype(np.float32),
+                        device=dev)
+    for n_valid in (None, 4321):
+        got = cuda_hist.weighted_histogram(v, 200.0, 1200.0, 50, w, n_valid)
+        want = cuda_hist.weighted_histogram_plain(v, 200.0, 1200.0, 50, w,
+                                                  n_valid)
+        total = w[..., :n_valid].sum(-1, keepdim=True)
+        assert torch.all((got - want).abs() <= 1e-6 * total)
+    edge = torch.tensor([[1200.0, 200.0, 1199.99, 1200.01, 199.9,
+                          float("nan")]], device=dev)
+    got = cuda_hist.weighted_histogram(edge, 200.0, 1200.0, 50,
+                                       torch.ones_like(edge))
+    want = torch.zeros((1, 50), device=dev)
+    want[0, 0], want[0, 49] = 1.0, 2.0
+    assert torch.equal(got, want)
+
+
+def test_transport_moments_kernel_matches_plain(dev):
+    rng = np.random.default_rng(2)
+    e0 = rng.uniform(450.0, 1250.0, (16, 20000))
+    e0[:, ::97] = rng.uniform(15.0, 200.0, (16, e0[:, ::97].shape[1]))
+    e0 = torch.as_tensor(e0.astype(np.float32), device=dev)
+    c = stopping.rk4_constants(stopping.d2_gas_stopping(),
+                               SIMULTFIT_X_BINNING.centers, 1)
+    bins = cuda_transport.MomentBins(200.0, 1200.0, 50)
+    got, e_kern = cuda_transport.transport_moments(e0, c, bins,
+                                                   energies_out=True)
+    want = cuda_transport.transport_moments_plain(e0, c, bins)
+    e_plain = stopping.rk4_transport(c, e0)
+    same = (cuda_transport.moment_channels(e_kern, bins)[0]
+            == cuda_transport.moment_channels(e_plain, bins)[0])
+    assert same.double().mean().item() >= 0.9999
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * 20000)

@@ -1,5 +1,6 @@
-"""The port imports without jax, triton or nvcc, and builds nothing at
-import time."""
+"""The port imports without jax, triton, nvcc or anything of the JAX
+package, and builds nothing at import time; its copies of the JAX
+package's constants and configuration hold the same values."""
 import os
 import subprocess
 import sys
@@ -13,6 +14,7 @@ _IMPORT_ALL = """
 import sys
 sys.modules['jax'] = None          # any 'import jax' now raises
 sys.modules['triton'] = None
+sys.modules['mcmctoffitting_tpu'] = None   # nor anything of the JAX package
 import pkgutil, importlib
 import mcmctoffitting_tpu_torch as pkg
 names = [m.name for m in
@@ -22,7 +24,8 @@ for name in names:
 from mcmctoffitting_tpu_torch.ops import cuda_build
 assert cuda_build.load_library.cache_info().currsize == 0   # nothing built
 loaded = [m for m, mod in sys.modules.items() if mod is not None
-          and m.split('.')[0] in ('jax', 'jaxlib', 'triton')]
+          and m.split('.')[0] in ('jax', 'jaxlib', 'triton',
+                                  'mcmctoffitting_tpu')]
 assert not loaded, loaded
 print(len(names))
 """
@@ -43,24 +46,72 @@ def test_port_imports_without_jax_or_triton():
 
 def test_kernel_modules_import_without_nvcc():
     proc = _run("import mcmctoffitting_tpu_torch.ops.cuda_poisson, "
-                "mcmctoffitting_tpu_torch.ops.cuda_tof; print('ok')",
+                "mcmctoffitting_tpu_torch.ops.cuda_tof, "
+                "mcmctoffitting_tpu_torch.ops.cuda_hist, "
+                "mcmctoffitting_tpu_torch.ops.cuda_transport; print('ok')",
                 {"PATH": "/nonexistent"})
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
 
 
-def test_no_jax_import_in_sources():
-    for path in (REPO / "mcmctoffitting_tpu_torch").rglob("*.py"):
-        for line in path.read_text().splitlines():
-            words = line.split("#")[0].split()
-            if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                assert words[1].split(".")[0] not in ("jax", "triton"), path
-                if words[1].startswith("mcmctoffitting_tpu."):
-                    # only the jax-free modules of the JAX package
-                    assert words[1] in ("mcmctoffitting_tpu.constants",
-                                        "mcmctoffitting_tpu.config"), path
-                if words[1] == "mcmctoffitting_tpu":
-                    assert words[3:] in (["config,", "constants"],
-                                         ["constants,", "config"]), path
+def _imported_roots(path):
+    """First component of every module an import line of ``path`` names
+    (absolute imports only)."""
+    for line in path.read_text().splitlines():
+        words = line.split("#")[0].replace(",", " ").split()
+        if words[:1] == ["from"] and len(words) > 1:
+            yield words[1].split(".")[0]
+        elif words[:1] == ["import"]:
+            for word in words[1:]:
+                if word == "as":
+                    break
+                yield word.split(".")[0]
+
+
+@pytest.mark.parametrize("where", ["mcmctoffitting_tpu_torch",
+                                   "chip_smoke.py"])
+def test_no_jax_import_in_sources(where):
+    paths = ([REPO / where] if where.endswith(".py")
+             else sorted((REPO / where).rglob("*.py")))
+    for path in paths:
+        roots = set(_imported_roots(path))
+        assert not roots & {"jax", "jaxlib", "triton",
+                            "mcmctoffitting_tpu"}, path
+
+
+def test_chip_smoke_imports_without_the_jax_package():
+    proc = _run("import sys; sys.modules['jax'] = None; "
+                "sys.modules['mcmctoffitting_tpu'] = None; "
+                "import runpy; runpy.run_path('chip_smoke.py', "
+                "run_name='not_main'); print('ok')")
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
+def test_constants_copies_hold_the_same_values():
+    from mcmctoffitting_tpu import config as jconfig
+    from mcmctoffitting_tpu import constants as jconst
+    from mcmctoffitting_tpu_torch import config as tconfig
+    from mcmctoffitting_tpu_torch import constants as tconst
+    for name in ("SIMULTFIT_ED_BINNING", "SIMULTFIT_X_BINNING"):
+        got, want = getattr(tconfig, name), getattr(jconfig, name)
+        assert (got.lo, got.hi, got.n) == (want.lo, want.hi, want.n), name
+        assert (got.centers == want.centers).all(), name
+        assert (got.edges == want.edges).all(), name
+    for win in ("close", "mid", "far", "production"):
+        got, want = tconst.tof_windows[win], jconst.tof_windows[win]
+        assert (got.lo, got.hi, got.n_bins) == (want.lo, want.hi,
+                                                want.n_bins), win
+    import dataclasses
+    assert (dataclasses.asdict(tconst.TUNL_SSA_CSI)
+            == dataclasses.asdict(jconst.TUNL_SSA_CSI))
+    for name in ("close", "mid", "far", "production"):
+        assert (tconst.TUNL_SSA_CSI.standoff(name)
+                == jconst.TUNL_SSA_CSI.standoff(name)), name
+    for ours, theirs in ((tconst.masses, jconst.masses),
+                         (tconst.physics, jconst.physics),
+                         (tconst.q_values, jconst.q_values)):
+        for field in dataclasses.fields(ours):
+            assert (getattr(ours, field.name)
+                    == getattr(theirs, field.name)), field.name
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch):
@@ -75,5 +126,6 @@ def test_missing_nvcc_is_a_clear_error(monkeypatch):
 def test_build_key_covers_every_source():
     from mcmctoffitting_tpu_torch.ops import cuda_build
     names = {p.name for p in cuda_build._sources()}
-    assert {"poisson.cu", "tof_hist.cu", "philox.cuh"} <= names
+    assert {"poisson.cu", "tof_hist.cu", "philox.cuh", "weighted_hist.cu",
+            "transport_moments.cu"} <= names
     assert cuda_build.source_hash() == cuda_build.source_hash()

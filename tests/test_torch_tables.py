@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from mcmctoffitting_tpu.models import simult as jsimult
-from mcmctoffitting_tpu.models.forward import _zero_degree_spread
+from mcmctoffitting_tpu.models.forward import (_taylor_coeffs,
+                                               _zero_degree_spread)
+from mcmctoffitting_tpu.ops.pallas_forward import bethe_closed_form_constants
 from mcmctoffitting_tpu.ops import e0grid as je0
 from mcmctoffitting_tpu.ops import interp as jinterp
 from mcmctoffitting_tpu.ops import kinematics as jkin
@@ -131,3 +133,26 @@ def test_tables_from_numpy_match_own_tables():
     np.testing.assert_allclose(conv.zt.numpy(), own.zt.numpy(), rtol=1e-6)
     np.testing.assert_allclose(conv.zw.numpy(), own.zw.numpy(), rtol=1e-6)
     assert SIMULTFIT_X_BINNING.n == own.x.shape[0]
+
+
+def test_mc_tables_from_numpy_match_own_tables():
+    """The mc estimator's tables (Taylor coefficients, Bethe (A, P, Q),
+    cross-section spline) carried across from the JAX package fill the
+    same buffers and constants as the port's own."""
+    jspec = jsimult.default_spec(4096, transport="rk4")
+    zt, zw = _zero_degree_spread(jspec)
+    converted = tforward.forward_tables_from_numpy(
+        timing_kernel=jtiming.ExGaussianTiming().kernel, zt=np.asarray(zt),
+        zw=np.asarray(zw), taylor=_taylor_coeffs(jspec),
+        bethe=bethe_closed_form_constants(jspec.stopping),
+        xs_coeffs=jspec.xs.coeffs)
+    tspec = tsimult.default_spec(4096, transport="rk4", sampling="mc")
+    problem = tsimult.SimultFitProblem(tspec, device="cpu")
+    own = tforward.TofForward(tspec, problem.standoffs, problem.windows,
+                              device="cpu")
+    conv = tforward.TofForward(tspec, problem.standoffs, problem.windows,
+                               device="cpu", tables=converted)
+    assert conv.e0grid is None and own.rk4 == conv.rk4
+    np.testing.assert_array_equal(conv.taylor.numpy(), own.taylor.numpy())
+    np.testing.assert_array_equal(conv.xs_coeffs.numpy(),
+                                  own.xs_coeffs.numpy())
