@@ -25,7 +25,7 @@ Phases (any failure raises; the exit code is then non-zero):
      energies and cross sections (5,120 rows x 200k), within 1e-6 of each
      row's total, and its np.histogram edge cases exactly;
   6. kernel, plain and library times at the half-step shapes (CUDA events,
-     median) beside each kernel's bound;
+     median) beside each kernel's bound (and the bound by the FLOP rule);
   7. counts: the GPU forward vs the CPU forward on 8 walkers, then the
      full-width fit for both likelihoods (K1 and K2 must be launched);
   8. mc: the GPU forward vs the CPU forward on 8 walkers with the same
@@ -60,9 +60,19 @@ N_WARM, N_TIMED = 20, 200            # counts fit
 MC_WARM, MC_TIMED = 5, 20            # mc 'taylor' fit
 EXACT_WARM, EXACT_TIMED = 1, 3       # mc 'exact' configuration
 LAMS = (0.5, 5.0, 10.0, 100.0, 1.0e4, 2.0e5)
-# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, float32 outside the
-# tensor cores, operations/s
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, and float32 outside the
+# tensor cores: 67e12 FLOP/s counts a fused multiply-add as two operations;
+# the kernels are built with -fmad=false and the counts below count every
+# add and multiply, so one operation per lane and cycle, 33.5e12/s
+PEAK_BYTES, PEAK_OPS = 3.35e12, 33.5e12
+# the FLOP rule, whose bound is printed beside: 67e12/s, logf and the
+# division one operation each
+PEAK_FLOPS = 67e12
+# instructions issued for one float32 logf and one IEEE division (its fast
+# path: MUFU.RCP, FCHK, five FFMA and the branch around the slow path) in
+# a chain, in the SASS for sm_90a: the difference between probe kernels
+# with one and with two chained ops (utils/kernel_split.py)
+LOGF_OPS, DIV_OPS = 25, 9
 
 
 def require(ok, what):
@@ -99,10 +109,10 @@ def cuda_ms(fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, peak_ops=PEAK_OPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    float32 operations over the float32 rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    float32 operations over the operation rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak_ops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -439,27 +449,36 @@ def main():
     k3_in = ((v_c >= eb.lo) & (v_c <= eb.hi)).sum().item()
     k3_in_full = ((vals >= eb.lo) & (vals <= eb.hi)).sum().item()
     pairs = e0_h.numel() * len(rk4.h)
-    bounds = {
+    # per (sample, depth, substep): four dE/dx (clamp, logf, product, add,
+    # division, negation, product) and the RK4 arithmetic, 16; per
+    # (sample, depth): two compares, and in range the binning and four
+    # atomic adds, 14 more.  The FLOP rule counts logf and the division as
+    # one operation each (44 per substep) at 67e12/s.
+    k4_ops = 2 * pairs + 14 * in_range_pairs
+    dedx_ops = 5 + LOGF_OPS + DIV_OPS
+    # name -> (bytes, operations, operations by the FLOP rule)
+    work = {
         # per rate: one Philox block (~100 integer operations) and the
         # inversion / PTRS arithmetic of one accepted round (~30)
-        "poisson": bound(8 * n_lam, 130 * n_lam),
+        "poisson": (8 * n_lam, 130 * n_lam, None),
         # per segment sample: add, product, two compares; in range:
         # subtract, scale, floor, clamp, atomic add
-        "tof_hist": bound(4 * (2 * b_h.numel() + 2 * zt.numel()
-                               + b_h.shape[0] * N_RUNS * win.n_pad),
-                          4 * b_h.numel() * zt.shape[1] + 5 * k2_in),
+        "tof_hist": (4 * (2 * b_h.numel() + 2 * zt.numel()
+                          + b_h.shape[0] * N_RUNS * win.n_pad),
+                     4 * b_h.numel() * zt.shape[1] + 5 * k2_in, None),
         # per value: two compares; in range: subtract, scale, floor,
         # clamp, atomic add
-        "weighted_hist": bound(4 * (2 * v_c.numel() + v_c.shape[0] * eb.n),
-                               2 * v_c.numel() + 5 * k3_in),
-        # per (sample, depth, substep): four dE/dx (clamp, log, product,
-        # add, division, negation, product) and the RK4 arithmetic, 44;
-        # per (sample, depth): two compares, and in range the binning and
-        # four atomic adds, 14 more
-        "transport_moments": bound(
+        "weighted_hist": (4 * (2 * v_c.numel() + v_c.shape[0] * eb.n),
+                          2 * v_c.numel() + 5 * k3_in, None),
+        "transport_moments": (
             4 * (e0_h.numel() + e0_h.shape[0] * len(rk4.h) * 4 * eb.n),
-            44 * rk4.n_substeps * pairs + 2 * pairs + 14 * in_range_pairs),
+            (4 * dedx_ops + 16) * rk4.n_substeps * pairs + k4_ops,
+            44 * rk4.n_substeps * pairs + k4_ops),
     }
+    bounds = {k: bound(b, o) for k, (b, o, _) in work.items()}
+    bounds_flop = {k: bound(b, o if o_flop is None else o_flop,
+                           PEAK_FLOPS)[0]
+                  for k, (b, o, o_flop) in work.items()}
     shapes = {"poisson": tuple(lam_h.shape), "tof_hist": tuple(b_h.shape),
               "weighted_hist": tuple(v_c.shape),
               "transport_moments": tuple(e0_h.shape)}
@@ -468,7 +487,8 @@ def main():
         log(f"phase 6 ({smi}): {name} {shapes[name]}: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, library "
             f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{b_ms:.4f} ms ({b_by}; {bounds_flop[name]:.4f} ms by the FLOP "
+            f"rule)")
     log(f"phase 6: in-range shares: K2 {k2_in / (b_h.numel() * 10):.4f}, "
         f"K3 {k3_in_full / vals.numel():.4f}, K4 "
         f"{in_range_pairs / pairs:.4f}")
@@ -561,7 +581,8 @@ def main():
             "replaces": f"mcmctoffitting_tpu/ops/{tpu}",
             "launches": launches[path][name], "max_abs_err": errs[name],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": l_ms})
+            "bound_by": b_by, "library_ms": l_ms,
+            "bound_ms_flop_rule": bounds_flop[name]})
     print(json.dumps({"kernels": kernels, "walker_steps_per_s": rate,
                       "acceptance": acc, "launches_by_path": launches}))
     print(smi)

@@ -18,78 +18,167 @@
 // scale is float32(n_bins / (hi - lo)), fixed on the host.
 //
 // Weights stay float32 (the TPU kernel's bf16 one-hot product on the
-// matrix unit belongs to the TPU) and are summed in float64: a bin of the
-// 'exact' path sums up to 200k weights, where a float32 sum in the
-// atomics' arbitrary order drifts by ~1e-5 of the row total between runs;
-// in float64 the kernel and its plain version (which also sums in
-// float64) agree to the final float32 rounding.
-//
-// Design: one block per row; a float64 histogram of n_bins per warp in
-// shared memory (atomics contend only within a warp); the threads stride
-// over the row, neighbouring threads on neighbouring addresses, four
-// loads in flight per thread; at the end the warp copies are summed in a
-// fixed order and the row written once, rounded to float32.
+// matrix unit belongs to the TPU) and are summed in float64, as the plain
+// version sums them: a bin of the 'exact' path sums up to 200k weights,
+// where a float32 sum in an arbitrary order drifts by ~1e-5 of the row
+// total between runs.
 //
 // What bounds it on an H100: bytes.  Every value and weight is read once
-// and used for a handful of operations: at the slice's half-step (5,120
-// rows x 200k samples) that is 8.2 GB, ~2.4 ms at 3.35 TB/s.
+// and used for a handful of operations: one 'exact' chunk (670 rows x
+// 200k) is 1.07 GB, 0.32 ms at 3.35 TB/s.  The previous design (a float64
+// histogram per warp) took 0.76 ms (utils/kernel_split.py):
+// its float64 shared-memory atomicAdd compiles to LDS.64 + DADD +
+// ATOMS.CAST.SPIN.64, a retry loop that serialises the lanes of a warp
+// that hit one bin (the energies of one row crowd into a few 20 keV
+// bins), and 670 one-row blocks made 1.3 waves on the card.
+//
+// The design, against that:
+// - no atomics: every thread keeps a private float64 histogram in shared
+//   memory (bin j of thread t at [j * blockDim + t], so a warp's lanes
+//   fall on distinct banks whatever bins they hit) and adds to it with a
+//   plain load, add, store;
+// - 16-byte loads of values and weights (four entries per thread and
+//   load, kWhUnroll loads of each in flight), when the rows are 16-byte
+//   aligned, else four 4-byte loads;
+// - a persistent grid: as many blocks as fit on the card at once, each
+//   owning one contiguous range of the (row, quad) space, equal in size.
+//   When its range leaves a row, a block sums its threads' histograms in
+//   a fixed order (float64) and adds the sums, rounded to float32, into
+//   the row's output with global atomics (the wrapper zeroes the
+//   output): a row split over two or three blocks gets two or three
+//   float32 adds per bin.
+// The private histograms take n_bins x 8 bytes per thread: the block has
+// min(128, 200 KB / (n_bins x 8 bytes)) threads, a multiple of 32, so the
+// kernel takes at most 800 bins.  It runs in 0.46 ms per (670, 200k)
+// chunk on an H100 80GB HBM3, ~70% of the bytes bound (PERF.md).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace mcmctof {
 namespace {
 
-constexpr int kWhThreads = 256;
-constexpr int kWhWarps = kWhThreads / 32;
+constexpr int kWhMaxThreads = 128;
+constexpr int kWhUnroll = 4;
+constexpr int kWhSmemLimit = 200 * 1024;
 
-__global__ void weighted_hist_kernel(const float* __restrict__ values,
-                                     const float* __restrict__ weights,
-                                     float* __restrict__ out,
-                                     long long row_len, long long n_valid,
-                                     float lo, float hi, float scale,
-                                     int n_bins) {
+struct WhParams {
+  long long row_len, n_valid, n_quads;   // quads of 4 entries per row
+  float lo, hi, scale;
+  int n_bins;
+};
+
+__device__ __forceinline__ void add(double* mine, float v, float w,
+                                    const WhParams& c) {
+  if (v >= c.lo && v <= c.hi) {
+    int idx = static_cast<int>(floorf((v - c.lo) * c.scale));
+    idx = min(max(idx, 0), c.n_bins - 1);
+    mine[idx * blockDim.x] += static_cast<double>(w);
+  }
+}
+
+// Sum the threads' histograms of one row into its output and zero them.
+__device__ void flush(double* hist, float* row_out, int n_bins) {
+  __syncthreads();
+  const int n_threads = blockDim.x;
+  for (int j = threadIdx.x; j < n_bins; j += n_threads) {
+    double sum = 0.0;
+    for (int t = 0; t < n_threads; ++t) {
+      sum += hist[j * n_threads + t];
+      hist[j * n_threads + t] = 0.0;
+    }
+    if (sum != 0.0) atomicAdd(row_out + j, static_cast<float>(sum));
+  }
+  __syncthreads();
+}
+
+template <bool kVector>
+__global__ void __launch_bounds__(kWhMaxThreads)
+weighted_hist_kernel(const float* __restrict__ values,
+                     const float* __restrict__ weights,
+                     float* __restrict__ out, long long n_rows, WhParams c) {
   extern __shared__ double hist[];
-  const long long row = blockIdx.x;
-  for (int j = threadIdx.x; j < n_bins * kWhWarps; j += blockDim.x)
+  for (int j = threadIdx.x; j < c.n_bins * blockDim.x; j += blockDim.x)
     hist[j] = 0.0;
   __syncthreads();
 
-  double* my_hist = hist + (threadIdx.x >> 5) * n_bins;
-  const float* v_row = values + row * row_len;
-  const float* w_row = weights + row * row_len;
-  const int nb1 = n_bins - 1;
-  constexpr int kUnroll = 4;
-  const long long stride = static_cast<long long>(blockDim.x) * kUnroll;
-  for (long long base = threadIdx.x; base < n_valid; base += stride) {
-    float v[kUnroll], w[kUnroll];
+  double* mine = hist + threadIdx.x;
+  const long long total = n_rows * c.n_quads;
+  const long long stop = total * (blockIdx.x + 1) / gridDim.x;
+  for (long long g = total * blockIdx.x / gridDim.x; g < stop;) {
+    const long long row = g / c.n_quads;
+    const long long seg_end = min(stop, (row + 1) * c.n_quads);
+    const float* v_row = values + row * c.row_len;
+    const float* w_row = weights + row * c.row_len;
+    const long long q_end = seg_end - row * c.n_quads;
+    for (long long q = g - row * c.n_quads + threadIdx.x; q < q_end;
+         q += static_cast<long long>(blockDim.x) * kWhUnroll) {
+      float v[kWhUnroll][4], w[kWhUnroll][4];
 #pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const long long i = base + static_cast<long long>(k) * blockDim.x;
-      const bool ok = i < n_valid;
-      v[k] = ok ? v_row[i] : lo - 1.0f;
-      w[k] = ok ? w_row[i] : 0.0f;
-    }
+      for (int u = 0; u < kWhUnroll; ++u) {
+        const long long qq = q + static_cast<long long>(u) * blockDim.x;
+        const long long i = qq * 4;
+        if (kVector && qq < q_end && i + 4 <= c.n_valid) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(v_row + i));
+          const float4 b = __ldg(reinterpret_cast<const float4*>(w_row + i));
+          v[u][0] = a.x; v[u][1] = a.y; v[u][2] = a.z; v[u][3] = a.w;
+          w[u][0] = b.x; w[u][1] = b.y; w[u][2] = b.z; w[u][3] = b.w;
+        } else {
 #pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      if (v[k] >= lo && v[k] <= hi) {
-        int idx = static_cast<int>(floorf((v[k] - lo) * scale));
-        idx = min(max(idx, 0), nb1);
-        atomicAdd(&my_hist[idx], static_cast<double>(w[k]));
+          for (int k = 0; k < 4; ++k) {
+            // past the range or the valid length: a value that no bin takes
+            const bool ok = qq < q_end && i + k < c.n_valid;
+            v[u][k] = ok ? v_row[i + k] : c.lo - 1.0f;
+            w[u][k] = ok ? w_row[i + k] : 0.0f;
+          }
+        }
       }
+#pragma unroll
+      for (int u = 0; u < kWhUnroll; ++u)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) add(mine, v[u][k], w[u][k], c);
     }
+    flush(hist, out + row * c.n_bins, c.n_bins);
+    g = seg_end;
   }
-  __syncthreads();
-  float* row_out = out + row * n_bins;
-  for (int j = threadIdx.x; j < n_bins; j += blockDim.x) {
-    double sum = 0.0;
-    for (int k = 0; k < kWhWarps; ++k) sum += hist[k * n_bins + j];
-    row_out[j] = static_cast<float>(sum);
+}
+
+template <bool kVector>
+cudaError_t launch(const float* values, const float* weights, float* out,
+                   long long n_rows, const WhParams& c, int device,
+                   cudaStream_t stream) {
+  const int threads = std::min(
+      kWhMaxThreads,
+      static_cast<int>(kWhSmemLimit / (c.n_bins * sizeof(double))) / 32 * 32);
+  if (threads < 32) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(c.n_bins) * threads * sizeof(double);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(weighted_hist_kernel<kVector>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
   }
+  int per_sm = 0, n_sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, weighted_hist_kernel<kVector>, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount,
+                               device);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      std::min(static_cast<long long>(std::max(per_sm, 1)) * n_sms,
+               (n_rows * c.n_quads + threads - 1) / threads);
+  weighted_hist_kernel<kVector><<<static_cast<int>(blocks), threads, smem,
+                                  stream>>>(values, weights, out, n_rows, c);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace mcmctof
 
+// out must be zeroed by the caller.
 extern "C" int mcmctof_weighted_hist(const float* values,
                                      const float* weights, float* out,
                                      int n_rows, long long row_len,
@@ -100,19 +189,16 @@ extern "C" int mcmctof_weighted_hist(const float* values,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_bins < 1 || n_valid > row_len || n_valid < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      static_cast<size_t>(n_bins) * mcmctof::kWhWarps * sizeof(double);
-  if (smem > 200 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows > 0) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(mcmctof::weighted_hist_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    mcmctof::weighted_hist_kernel<<<n_rows, mcmctof::kWhThreads, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-        values, weights, out, row_len, n_valid, lo, hi, scale, n_bins);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n_rows <= 0 || n_valid == 0) return static_cast<int>(cudaGetLastError());
+  const mcmctof::WhParams c{row_len, n_valid, (n_valid + 3) / 4,
+                            lo, hi, scale, n_bins};
+  const bool vector = row_len % 4 == 0 &&
+                      reinterpret_cast<size_t>(values) % 16 == 0 &&
+                      reinterpret_cast<size_t>(weights) % 16 == 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  err = vector ? mcmctof::launch<true>(values, weights, out, n_rows, c,
+                                       device, s)
+               : mcmctof::launch<false>(values, weights, out, n_rows, c,
+                                        device, s);
+  return static_cast<int>(err);
 }

@@ -54,9 +54,9 @@ _SIGNATURES = {
     "mcmctof_weighted_hist": [_P, _P, _P, _I, _L, _L, _F, _F, _F, _I, _I,
                               _P],
     # e0, steps, out, e_out, n_rows, n, n_x, n_sub, n_bins, a, p, q,
-    # floor, lo, hi, inv_width, n_split, device, stream
+    # floor, lo, hi, inv_width, device, stream
     "mcmctof_transport_moments": [_P] * 4 + [_I, _L, _I, _I, _I]
-    + [_F] * 7 + [_I, _I, _P],
+    + [_F] * 7 + [_I, _P],
 }
 
 

@@ -17,6 +17,10 @@ import torch
 
 from .cuda_build import check, load_library
 
+# the kernel keeps n_bins float64 sums per thread in shared memory, for at
+# least 32 threads (csrc/weighted_hist.cu)
+KERNEL_MAX_BINS = 800
+
 
 def _scale(lo: float, hi: float, n_bins: int) -> float:
     """float32(n_bins / (hi - lo)), the bin scale every version uses."""
@@ -69,7 +73,10 @@ def weighted_histogram(values: torch.Tensor, lo: float, hi: float,
                          f"{values.device}")
     if not (values.is_contiguous() and weights.is_contiguous()):
         raise ValueError("weighted_histogram: inputs must be contiguous")
-    out = torch.empty(values.shape[:-1] + (n_bins,), dtype=torch.float32,
+    if not 1 <= n_bins <= KERNEL_MAX_BINS:
+        raise ValueError(f"weighted_histogram: the CUDA kernel takes 1 to "
+                         f"{KERNEL_MAX_BINS} bins, not {n_bins}")
+    out = torch.zeros(values.shape[:-1] + (n_bins,), dtype=torch.float32,
                       device=values.device)
     n_rows = out.numel() // n_bins
     if n_rows == 0:

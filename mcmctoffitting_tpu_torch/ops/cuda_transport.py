@@ -105,10 +105,6 @@ def transport_moments(e0: torch.Tensor, c: RK4Constants, bins: MomentBins,
     e_out = (torch.empty((n_rows, n_x, n), dtype=torch.float32,
                          device=e0.device) if energies_out else None)
     if n_rows and n:
-        # enough blocks for ~4 per SM of an H100 (132 SMs), each >= 2048
-        # samples
-        n_split = int(min(max(1, -(-528 // n_rows)), max(1, n // 2048),
-                          65535))
         lib = load_library().lib
         stream = torch.cuda.current_stream(e0.device).cuda_stream
         steps = _steps_tensor(c, e0.device)
@@ -117,7 +113,7 @@ def transport_moments(e0: torch.Tensor, c: RK4Constants, bins: MomentBins,
             e_out.data_ptr() if e_out is not None else None, n_rows, n,
             n_x, c.n_substeps, bins.n_bins, c.a, c.p, c.q, c.energy_floor,
             float(np.float32(bins.lo)), float(np.float32(bins.hi)),
-            bins.inv_width, n_split, e0.device.index, stream),
+            bins.inv_width, e0.device.index, stream),
             "transport_moments kernel launch")
         transport_moments.launches += 1
     return (out, e_out) if energies_out else out

@@ -109,3 +109,70 @@ def test_transport_moments_kernel_matches_plain(dev):
             == cuda_transport.moment_channels(e_plain, bins)[0])
     assert same.double().mean().item() >= 0.9999
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * 20000)
+
+
+def _k4_inputs(case):
+    """(R, N) initial energies for one K4 edge case, from a seed."""
+    rng = np.random.default_rng(3)
+    if case == "one_bin":          # every sample in one eD bin at each depth
+        return rng.uniform(709.0, 711.0, (2, 30_000))
+    if case == "ragged_n":         # N not a multiple of a block's round
+        return rng.uniform(450.0, 1250.0, (33, 3 * 512 + 77))
+    if case == "one_row":          # one row spread over many blocks
+        return rng.uniform(450.0, 1250.0, (1, 200_000))
+    if case == "many_rows":        # many short rows per block
+        return rng.uniform(450.0, 1250.0, (300, 1000))
+    e0 = rng.uniform(15.0, 260.0, (8, 5000))   # at and below the floor
+    e0[:, ::7] = 20.0
+    e0[:, 1::11] = np.nan
+    e0[:, 2::13] = -5.0
+    e0[:, 3::17] = np.inf
+    return e0
+
+
+@pytest.mark.parametrize("case", ["one_bin", "ragged_n", "one_row",
+                                  "many_rows", "floor_and_nan"])
+def test_transport_moments_kernel_edge_cases(dev, case):
+    e0 = torch.as_tensor(_k4_inputs(case).astype(np.float32), device=dev)
+    c = stopping.rk4_constants(stopping.d2_gas_stopping(),
+                               SIMULTFIT_X_BINNING.centers, 1)
+    bins = cuda_transport.MomentBins(200.0, 1200.0, 50)
+    got, e_kern = cuda_transport.transport_moments(e0, c, bins,
+                                                   energies_out=True)
+    want = cuda_transport.transport_moments_plain(e0, c, bins)
+    # the transported energies bit for bit (NaN where the plain has NaN)
+    torch.testing.assert_close(e_kern, stopping.rk4_transport(c, e0),
+                               rtol=0, atol=0, equal_nan=True)
+    total = want[:, :, 0].sum(dim=(-2, -1))[:, None, None, None]
+    assert torch.all((got - want).abs() <= 1e-5 * total.clamp_min(1.0))
+
+
+@pytest.mark.parametrize("row_len, n_valid, n_bins", [
+    (5000, 5000, 50),      # all weight in one bin
+    (5001, 4999, 50),      # rows not 16-byte aligned: 4-byte loads
+    (5000, 4097, 50),      # a valid length inside a quad
+    (5000, 1, 50),
+    (5000, 0, 50),
+    (4000, 4000, 800),     # the most bins the kernel takes
+])
+def test_weighted_hist_kernel_edge_cases(dev, row_len, n_valid, n_bins):
+    rng = np.random.default_rng(4)
+    if n_bins == 50 and row_len == n_valid == 5000:
+        v = np.full((7, row_len), 777.0)
+    else:
+        v = rng.uniform(150, 1250, (7, row_len))
+    w = rng.uniform(0, 40, v.shape)
+    v = torch.as_tensor(v.astype(np.float32), device=dev)
+    w = torch.as_tensor(w.astype(np.float32), device=dev)
+    got = cuda_hist.weighted_histogram(v, 200.0, 1200.0, n_bins, w, n_valid)
+    want = cuda_hist.weighted_histogram_plain(v, 200.0, 1200.0, n_bins, w,
+                                              n_valid)
+    total = w[:, :n_valid].sum(-1, keepdim=True)
+    assert torch.all((got - want).abs() <= 1e-6 * total)
+
+
+def test_weighted_hist_kernel_refuses_too_many_bins(dev):
+    v = torch.zeros((1, 16), device=dev)
+    with pytest.raises(ValueError, match="bins"):
+        cuda_hist.weighted_histogram(v, 0.0, 1.0,
+                                     cuda_hist.KERNEL_MAX_BINS + 1, v)
