@@ -20,12 +20,16 @@ Phases (any failure raises; the exit code is then non-zero):
      the np.histogram edge cases;
   4. K4 transport-moments kernel vs plain on one half-step's initial
      energies (128 walkers x 4 runs x 200k): bins equal on >= 99.99% of
-     (sample, depth) pairs, moments within 1e-5 of each row's total;
+     (sample, depth) pairs, moments within 1e-5 of each row's total, and
+     per channel against the float64 sums of its energies' channels
+     (counts exact, d-channels within their fixed-point steps);
   5. K3 weighted-histogram kernel vs plain on that half-step's transported
      energies and cross sections (5,120 rows x 200k), within 1e-6 of each
-     row's total, and its np.histogram edge cases exactly;
+     row's total, the same on a second call, and its np.histogram edge
+     cases exactly;
   6. kernel, plain and library times at the half-step shapes (CUDA events,
-     median) beside each kernel's bound (and the bound by the FLOP rule);
+     median) beside each kernel's bound (and K4's instruction-issue
+     floor);
   7. counts: the GPU forward vs the CPU forward on 8 walkers, then the
      full-width fit for both likelihoods (K1 and K2 must be launched);
   8. mc: the GPU forward vs the CPU forward on 8 walkers with the same
@@ -60,19 +64,17 @@ N_WARM, N_TIMED = 20, 200            # counts fit
 MC_WARM, MC_TIMED = 5, 20            # mc 'taylor' fit
 EXACT_WARM, EXACT_TIMED = 1, 3       # mc 'exact' configuration
 LAMS = (0.5, 5.0, 10.0, 100.0, 1.0e4, 2.0e5)
-# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s, and float32 outside the
-# tensor cores: 67e12 FLOP/s counts a fused multiply-add as two operations;
-# the kernels are built with -fmad=false and the counts below count every
-# add and multiply, so one operation per lane and cycle, 33.5e12/s
-PEAK_BYTES, PEAK_OPS = 3.35e12, 33.5e12
-# the FLOP rule, whose bound is printed beside: 67e12/s, logf and the
-# division one operation each
-PEAK_FLOPS = 67e12
-# instructions issued for one float32 logf and one IEEE division (its fast
-# path: MUFU.RCP, FCHK, five FFMA and the branch around the slow path) in
-# a chain, in the SASS for sm_90a: the difference between probe kernels
-# with one and with two chained ops (utils/kernel_split.py)
-LOGF_OPS, DIV_OPS = 25, 9
+# NVIDIA H100 SXM peaks (data sheet): HBM bytes/s and float32 FLOP/s
+# outside the tensor cores; the bound counts logf and a division as one
+# operation each
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# K4's instruction-issue floor, reported beside its bound: one float32
+# lane-instruction per lane and cycle (132 SMs x 128 lanes x 1.98 GHz; no
+# FMA pairing under -fmad=false), with logf and the IEEE division counted
+# as the instructions they issue in a chain in the SASS for sm_90a (logf
+# 25; the division's fast path 9: MUFU.RCP, FCHK, five FFMA and the
+# branch around the slow path; read by perf/kernel_split.py)
+INSTR_RATE, LOGF_INSTR, DIV_INSTR = 33.5e12, 25, 9
 
 
 def require(ok, what):
@@ -109,10 +111,10 @@ def cuda_ms(fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def bound(n_bytes, n_ops, peak_ops=PEAK_OPS):
+def bound(n_bytes, n_ops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    float32 operations over the operation rate."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak_ops
+    float32 operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -211,18 +213,21 @@ def in_range_bins(e, bins):
 
 def phase_transport(e0, rk4, bins):
     """K4 vs plain on (rows, N) initial energies; returns (max error,
-    the plain transported energies)."""
+    the plain transported energies, the plain moments)."""
     kern, e_kern = cuda_transport.transport_moments(e0, rk4, bins,
                                                     energies_out=True)
     plain = cuda_transport.transport_moments_plain(e0, rk4, bins)
     n_rows = e0.shape[0]
     e_plain = torch.empty_like(e_kern)
-    equal = 0
+    equal, counts_equal, ratio = 0, True, 0.0
     for start in range(0, n_rows, 32):
         rows = slice(start, start + 32)
         e_plain[rows] = stopping.rk4_transport(rk4, e0[rows])
         equal += (in_range_bins(e_kern[rows], bins)
                   == in_range_bins(e_plain[rows], bins)).sum().item()
+        c_eq, r = cuda_transport.moment_check(kern[rows], e_kern[rows],
+                                              bins)
+        counts_equal, ratio = counts_equal and c_eq, max(ratio, r)
     share = equal / e_kern.numel()
     bits = (e_kern == e_plain).double().mean().item()
     total = plain[:, :, 0].sum(dim=(-2, -1))[:, None, None, None]
@@ -231,9 +236,13 @@ def phase_transport(e0, rk4, bins):
     log(f"phase 4: K4 kernel vs plain on {tuple(e0.shape)}: bins equal on "
         f"{share:.6f} of (sample, depth) pairs, energies bitwise equal on "
         f"{bits:.6f}; moments max|diff| {err.max().item():g} ({rel:.2e} of "
-        f"the row total)")
+        f"the row total); per channel against the float64 sums of its "
+        f"energies: counts equal {counts_equal}, d-channels at "
+        f"{ratio:.3f} of their tolerance")
     require(share >= 0.9999, "K4 bins equal on >= 99.99% of pairs")
     require(rel <= 1e-5, "K4 moments within 1e-5 of each row's total")
+    require(counts_equal, "K4 count channel exact")
+    require(ratio <= 1.0, "K4 d-channels within their fixed-point steps")
     return err.max().item(), e_plain, plain
 
 
@@ -251,9 +260,12 @@ def phase_hist(dev, values, weights, bins):
         total = plain.sum(-1, keepdim=True).clamp_min(1e-30)
         max_err = max(max_err, err.max().item())
         max_rel = max(max_rel, (err / total).max().item())
+    again = cuda_hist.weighted_histogram(values, lo, hi, nb, weights)
     log(f"phase 5: K3 kernel vs plain on {tuple(values.shape)}: "
-        f"max|diff| {max_err:g} ({max_rel:.2e} of the row total)")
+        f"max|diff| {max_err:g} ({max_rel:.2e} of the row total); a second "
+        f"call equal: {torch.equal(kern, again)}")
     require(max_rel <= 1e-6, "K3 within 1e-6 of each row's total")
+    require(torch.equal(kern, again), "K3 the same on every call")
 
     edge = torch.tensor([[hi, lo, hi - 0.01, hi + 0.01, lo - 0.1,
                           float("nan"), 0.5 * (lo + hi)]], device=dev)
@@ -450,35 +462,32 @@ def main():
     k3_in_full = ((vals >= eb.lo) & (vals <= eb.hi)).sum().item()
     pairs = e0_h.numel() * len(rk4.h)
     # per (sample, depth, substep): four dE/dx (clamp, logf, product, add,
-    # division, negation, product) and the RK4 arithmetic, 16; per
+    # division, negation, product) and the RK4 arithmetic, 44; per
     # (sample, depth): two compares, and in range the binning and four
-    # atomic adds, 14 more.  The FLOP rule counts logf and the division as
-    # one operation each (44 per substep) at 67e12/s.
+    # atomic adds, 14 more
     k4_ops = 2 * pairs + 14 * in_range_pairs
-    dedx_ops = 5 + LOGF_OPS + DIV_OPS
-    # name -> (bytes, operations, operations by the FLOP rule)
-    work = {
+    bounds = {
         # per rate: one Philox block (~100 integer operations) and the
         # inversion / PTRS arithmetic of one accepted round (~30)
-        "poisson": (8 * n_lam, 130 * n_lam, None),
+        "poisson": bound(8 * n_lam, 130 * n_lam),
         # per segment sample: add, product, two compares; in range:
         # subtract, scale, floor, clamp, atomic add
-        "tof_hist": (4 * (2 * b_h.numel() + 2 * zt.numel()
-                          + b_h.shape[0] * N_RUNS * win.n_pad),
-                     4 * b_h.numel() * zt.shape[1] + 5 * k2_in, None),
+        "tof_hist": bound(4 * (2 * b_h.numel() + 2 * zt.numel()
+                               + b_h.shape[0] * N_RUNS * win.n_pad),
+                          4 * b_h.numel() * zt.shape[1] + 5 * k2_in),
         # per value: two compares; in range: subtract, scale, floor,
         # clamp, atomic add
-        "weighted_hist": (4 * (2 * v_c.numel() + v_c.shape[0] * eb.n),
-                          2 * v_c.numel() + 5 * k3_in, None),
-        "transport_moments": (
+        "weighted_hist": bound(4 * (2 * v_c.numel() + v_c.shape[0] * eb.n),
+                               2 * v_c.numel() + 5 * k3_in),
+        "transport_moments": bound(
             4 * (e0_h.numel() + e0_h.shape[0] * len(rk4.h) * 4 * eb.n),
-            (4 * dedx_ops + 16) * rk4.n_substeps * pairs + k4_ops,
             44 * rk4.n_substeps * pairs + k4_ops),
     }
-    bounds = {k: bound(b, o) for k, (b, o, _) in work.items()}
-    bounds_flop = {k: bound(b, o if o_flop is None else o_flop,
-                           PEAK_FLOPS)[0]
-                  for k, (b, o, o_flop) in work.items()}
+    # the same operations with logf and the division as the instructions
+    # they issue, at the lane-instruction rate
+    k4_instr = ((4 * (5 + LOGF_INSTR + DIV_INSTR) + 16) * rk4.n_substeps
+                * pairs + k4_ops)
+    issue_floor = {"transport_moments": 1e3 * k4_instr / INSTR_RATE}
     shapes = {"poisson": tuple(lam_h.shape), "tof_hist": tuple(b_h.shape),
               "weighted_hist": tuple(v_c.shape),
               "transport_moments": tuple(e0_h.shape)}
@@ -487,8 +496,9 @@ def main():
         log(f"phase 6 ({smi}): {name} {shapes[name]}: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, library "
             f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms ({b_by}; {bounds_flop[name]:.4f} ms by the FLOP "
-            f"rule)")
+            f"{b_ms:.4f} ms ({b_by})"
+            + (f", instruction-issue floor {issue_floor[name]:.4f} ms"
+               if name in issue_floor else ""))
     log(f"phase 6: in-range shares: K2 {k2_in / (b_h.numel() * 10):.4f}, "
         f"K3 {k3_in_full / vals.numel():.4f}, K4 "
         f"{in_range_pairs / pairs:.4f}")
@@ -582,7 +592,7 @@ def main():
             "launches": launches[path][name], "max_abs_err": errs[name],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms,
-            "bound_ms_flop_rule": bounds_flop[name]})
+            "issue_floor_ms": issue_floor.get(name)})
     print(json.dumps({"kernels": kernels, "walker_steps_per_s": rate,
                       "acceptance": acc, "launches_by_path": launches}))
     print(smi)

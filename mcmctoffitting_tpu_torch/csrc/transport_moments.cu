@@ -26,18 +26,19 @@
 // The clamp keeps NaN, as torch.clamp_min does.  The optional e_out
 // receives the transported energies (rows, M, N) for checks.
 //
-// What bounds it on an H100: instruction issue.  In the SASS (sm_90a,
-// read by utils/kernel_split.py) one RK4 substep is ~187 instructions per
-// sample: four dE/dx, each a logf (25 instructions in a chain, no MUFU)
-// and an IEEE division (9: MUFU.RCP, FCHK, five FFMA and a branch around
-// the slow path), plus the RK4 sums.  With the binning, ~236 instructions
-// run per (sample, depth): at 512 rows x 200k samples x 10 depths that is
-// ~2.4e11 lane-instructions, ~7.2 ms at one warp-instruction per
-// scheduler per cycle on 132 SMs at 1.98 GHz.  The previous design (a
-// float32 histogram per warp) took 23.3 ms: its float32 shared-memory
-// atomicAdds compile to LDS + FADD +
+// What bounds it on an H100: instruction issue.  (The roofline, which
+// counts logf and the division as one operation each at 67e12/s, is
+// 0.92 ms.)  In the SASS (sm_90a, read by perf/kernel_split.py) one RK4
+// substep is ~187 instructions per sample: four dE/dx, each a logf (25
+// instructions in a chain, no MUFU) and an IEEE division (9: MUFU.RCP,
+// FCHK, five FFMA and a branch around the slow path), plus the RK4 sums.
+// With the binning, ~236 instructions run per (sample, depth): at 512
+// rows x 200k samples x 10 depths that is ~2.4e11 lane-instructions,
+// ~7.2 ms at one warp-instruction per scheduler per cycle on 132 SMs at
+// 1.98 GHz.  The previous design (a float32 histogram per warp) took
+// 23.3 ms: its float32 shared-memory atomicAdds compile to LDS + FADD +
 // ATOMS.CAST.SPIN retry loops, and four of them per (sample, depth) cost
-// more than the transport (utils/kernel_split.py on an H100: histogram
+// more than the transport (perf/kernel_split.py on an H100: histogram
 // removed 7.6 ms, transport removed 17.4 ms).
 //
 // The design, against that:

@@ -39,7 +39,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# C entry points: name -> argtypes (every one returns cudaError_t as int)
+# C entry points: name -> argtypes (each returns an int: a cudaError_t,
+# or the bin cap of mcmctof_weighted_hist_max_bins)
 _SIGNATURES = {
     # lam, out, n, seed0, seed1, device, stream
     "mcmctof_poisson": [_P, _P, _L, ctypes.c_uint32,
@@ -49,10 +50,14 @@ _SIGNATURES = {
     # base, draws, zt, zw, lo, hi, scale, nb1, out,
     # n_rows, n_runs, n_cells, n_ed, n_seg, n_pad, device, stream
     "mcmctof_tof_hist": [_P] * 9 + [_I] * 7 + [_P],
-    # values, weights, out, n_rows, row_len, n_valid, lo, hi, scale,
-    # n_bins, device, stream
-    "mcmctof_weighted_hist": [_P, _P, _P, _I, _L, _L, _F, _F, _F, _I, _I,
-                              _P],
+    # values, weights, out, parts, blocks, n_rows, row_len, n_valid, lo,
+    # hi, scale, n_bins, device, stream
+    "mcmctof_weighted_hist": [_P, _P, _P, _P, _L, _I, _L, _L, _F, _F, _F,
+                              _I, _I, _P],
+    "mcmctof_weighted_hist_max_bins": [],
+    # n_rows, n_valid, n_bins, device, blocks (out)
+    "mcmctof_weighted_hist_blocks": [_I, _L, _I, _I,
+                                     ctypes.POINTER(ctypes.c_longlong)],
     # e0, steps, out, e_out, n_rows, n, n_x, n_sub, n_bins, a, p, q,
     # floor, lo, hi, inv_width, device, stream
     "mcmctof_transport_moments": [_P] * 4 + [_I, _L, _I, _I, _I]

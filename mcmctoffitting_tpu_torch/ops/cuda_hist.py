@@ -10,16 +10,13 @@ counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .cuda_build import check, load_library
-
-# the kernel keeps n_bins float64 sums per thread in shared memory, for at
-# least 32 threads (csrc/weighted_hist.cu)
-KERNEL_MAX_BINS = 800
 
 
 def _scale(lo: float, hi: float, n_bins: int) -> float:
@@ -73,20 +70,30 @@ def weighted_histogram(values: torch.Tensor, lo: float, hi: float,
                          f"{values.device}")
     if not (values.is_contiguous() and weights.is_contiguous()):
         raise ValueError("weighted_histogram: inputs must be contiguous")
-    if not 1 <= n_bins <= KERNEL_MAX_BINS:
+    lib = load_library().lib
+    max_bins = lib.mcmctof_weighted_hist_max_bins()
+    if not 1 <= n_bins <= max_bins:
         raise ValueError(f"weighted_histogram: the CUDA kernel takes 1 to "
-                         f"{KERNEL_MAX_BINS} bins, not {n_bins}")
+                         f"{max_bins} bins, not {n_bins}")
     out = torch.zeros(values.shape[:-1] + (n_bins,), dtype=torch.float32,
                       device=values.device)
     n_rows = out.numel() // n_bins
     if n_rows == 0:
         return out
-    lib = load_library().lib
+    dev = values.device.index
+    blocks = ctypes.c_longlong()
+    check(lib.mcmctof_weighted_hist_blocks(n_rows, n_valid, n_bins, dev,
+                                           ctypes.byref(blocks)),
+          "weighted_hist grid")
+    # the float64 sums of the rows that blocks share: two slots per block
+    parts = (torch.empty(2 * blocks.value * n_bins, dtype=torch.float64,
+                         device=values.device) if blocks.value > 1 else None)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     check(lib.mcmctof_weighted_hist(
-        values.data_ptr(), weights.data_ptr(), out.data_ptr(), n_rows,
+        values.data_ptr(), weights.data_ptr(), out.data_ptr(),
+        None if parts is None else parts.data_ptr(), blocks.value, n_rows,
         row_len, n_valid, float(np.float32(lo)), float(np.float32(hi)),
-        _scale(lo, hi, n_bins), n_bins, values.device.index, stream),
+        _scale(lo, hi, n_bins), n_bins, dev, stream),
         "weighted_hist kernel launch")
     weighted_histogram.launches += 1
     return out

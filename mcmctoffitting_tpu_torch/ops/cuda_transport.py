@@ -18,6 +18,9 @@ from .cuda_build import check, load_library
 from .stopping import RK4Constants, rk4_transport
 
 _PLAIN_CHUNK = 1 << 24     # (rows x M x samples) elements per plain chunk
+# steps of the kernel's fixed-point d, d^2, d^3 sums (its counts are
+# integers; csrc/transport_moments.cu)
+KERNEL_STEPS = (2.0 ** -14, 2.0 ** -15, 2.0 ** -16)
 
 
 class MomentBins(NamedTuple):
@@ -48,6 +51,34 @@ def moment_channels(e: torch.Tensor, bins: MomentBins):
     # out-of-range (and NaN) energies: index 0, all channels 0
     return torch.where(in_range, idx, 0.0).long(), torch.where(
         in_range[..., None], chans, 0.0)
+
+
+def moment_check(moments: torch.Tensor, e: torch.Tensor,
+                 bins: MomentBins):
+    """Hold moment histograms ``moments`` (R, M, 4, n_bins) from the kernel
+    against the float64 sums of the channels of the energies ``e``
+    (R, M, N) it binned, channel by channel.  The kernel counts exactly
+    and rounds each d, d^2, d^3 to a multiple of its fixed-point step
+    (half a step per sample) before its flushed partial sums are rounded
+    to float32: the tolerance of a d-channel is one step per sample plus
+    2^-20 of the sum of the channel's magnitudes.  Returns (counts equal,
+    the worst d-channel error over its tolerance)."""
+    n_rows, n_x, _ = e.shape
+    idx, chans = moment_channels(e, bins)
+    cells = (torch.arange(4, device=e.device) * bins.n_bins
+             + idx[..., None]).reshape(n_rows, n_x, -1)
+    chans = chans.double().reshape(n_rows, n_x, -1)
+    del idx
+    sums = torch.zeros((n_rows, n_x, 4 * bins.n_bins), dtype=torch.float64,
+                       device=e.device)
+    mags = torch.zeros_like(sums)
+    sums = sums.scatter_add_(-1, cells, chans).reshape(moments.shape)
+    mags = mags.scatter_add_(-1, cells, chans.abs()).reshape(moments.shape)
+    counts_equal = torch.equal(moments[:, :, 0].double(), sums[:, :, 0])
+    steps = torch.tensor(KERNEL_STEPS, dtype=torch.float64, device=e.device)
+    tol = sums[:, :, :1] * steps[:, None] + 2.0 ** -20 * mags[:, :, 1:]
+    err = (moments[:, :, 1:].double() - sums[:, :, 1:]).abs()
+    return counts_equal, (err / tol.clamp_min(1e-300)).max().item()
 
 
 def transport_moments_plain(e0: torch.Tensor, c: RK4Constants,

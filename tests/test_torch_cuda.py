@@ -14,6 +14,7 @@ import torch
 from mcmctoffitting_tpu_torch.config import SIMULTFIT_X_BINNING
 from mcmctoffitting_tpu_torch.constants import tof_windows
 from mcmctoffitting_tpu_torch.ops import cuda_hist, cuda_transport
+from mcmctoffitting_tpu_torch.ops.cuda_build import load_library
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
 from mcmctoffitting_tpu_torch.ops import stopping
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import philox_cuda, poisson
@@ -84,6 +85,8 @@ def test_weighted_hist_kernel_matches_plain(dev):
                                                   n_valid)
         total = w[..., :n_valid].sum(-1, keepdim=True)
         assert torch.all((got - want).abs() <= 1e-6 * total)
+        assert torch.equal(got, cuda_hist.weighted_histogram(
+            v, 200.0, 1200.0, 50, w, n_valid))
     edge = torch.tensor([[1200.0, 200.0, 1199.99, 1200.01, 199.9,
                           float("nan")]], device=dev)
     got = cuda_hist.weighted_histogram(edge, 200.0, 1200.0, 50,
@@ -145,6 +148,11 @@ def test_transport_moments_kernel_edge_cases(dev, case):
                                rtol=0, atol=0, equal_nan=True)
     total = want[:, :, 0].sum(dim=(-2, -1))[:, None, None, None]
     assert torch.all((got - want).abs() <= 1e-5 * total.clamp_min(1.0))
+    # per channel, against the float64 sums of the channels of the
+    # kernel's energies: the counts exactly, d, d^2, d^3 within their
+    # fixed-point steps
+    counts_equal, ratio = cuda_transport.moment_check(got, e_kern, bins)
+    assert counts_equal and ratio <= 1.0
 
 
 @pytest.mark.parametrize("row_len, n_valid, n_bins", [
@@ -169,10 +177,15 @@ def test_weighted_hist_kernel_edge_cases(dev, row_len, n_valid, n_bins):
                                               n_valid)
     total = w[:, :n_valid].sum(-1, keepdim=True)
     assert torch.all((got - want).abs() <= 1e-6 * total)
+    # the blocks' sums are added in a fixed order: the same on every call
+    assert torch.equal(got, cuda_hist.weighted_histogram(v, 200.0, 1200.0,
+                                                         n_bins, w, n_valid))
 
 
 def test_weighted_hist_kernel_refuses_too_many_bins(dev):
     v = torch.zeros((1, 16), device=dev)
+    max_bins = load_library().lib.mcmctof_weighted_hist_max_bins()
+    assert max_bins == 800
+    cuda_hist.weighted_histogram(v, 0.0, 1.0, max_bins, v)
     with pytest.raises(ValueError, match="bins"):
-        cuda_hist.weighted_histogram(v, 0.0, 1.0,
-                                     cuda_hist.KERNEL_MAX_BINS + 1, v)
+        cuda_hist.weighted_histogram(v, 0.0, 1.0, max_bins + 1, v)

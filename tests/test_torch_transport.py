@@ -302,3 +302,47 @@ def test_spec_combinations():
         tsimult.default_spec(1000, transport="rk4", sampling="counts")
     with pytest.raises(ValueError, match="transport='table'"):
         jsimult.default_spec(1000, transport="rk4", sampling="counts")
+
+
+@pytest.mark.parametrize("case", ["k3_shapes", "k3_dtype", "k3_n_valid",
+                                  "k4_energies_out", "k4_dtype"])
+def test_kernel_wrappers_refuse_bad_inputs(case):
+    """The K3 and K4 wrappers refuse what neither their kernel nor their
+    plain version takes, on the CPU as on the card."""
+    v = torch.ones((2, 8))
+    with pytest.raises((TypeError, ValueError)):
+        if case == "k3_shapes":
+            cuda_hist.weighted_histogram(v, 0.0, 1.0, 4, torch.ones((2, 7)))
+        elif case == "k3_dtype":
+            cuda_hist.weighted_histogram(v.double(), 0.0, 1.0, 4, v.double())
+        elif case == "k3_n_valid":
+            cuda_hist.weighted_histogram(v, 0.0, 1.0, 4, v, n_valid=9)
+        elif case == "k4_energies_out":
+            cuda_transport.transport_moments(
+                v, _rk4(), cuda_transport.MomentBins(200.0, 1200.0, 50),
+                energies_out=True)
+        else:
+            cuda_transport.transport_moments(
+                v.double(), _rk4(), cuda_transport.MomentBins(200.0, 1200.0,
+                                                              50))
+
+
+@pytest.mark.parametrize("fault", [None, "d3_zeroed", "d1_scaled",
+                                   "count_off_by_one"])
+def test_moment_check_finds_a_wrong_channel(fault):
+    """The per-channel check of K4's moments passes the plain version's
+    float32 sums and fails each channel that is wrong."""
+    c, bins = _rk4(), cuda_transport.MomentBins(ED_LO, ED_HI, ED_N)
+    e0 = torch.as_tensor(_e0((3, 20_000), 8))
+    e0[:, ::50] = float("nan")
+    moments = cuda_transport.transport_moments_plain(e0, c, bins)
+    if fault == "d3_zeroed":
+        moments[:, :, 3] = 0.0
+    elif fault == "d1_scaled":
+        moments[:, :, 1] *= 1.001
+    elif fault == "count_off_by_one":
+        moments[0, 0, 0, 10] += 1.0
+    counts_equal, ratio = cuda_transport.moment_check(
+        moments, tstopping.rk4_transport(c, e0), bins)
+    assert counts_equal == (fault != "count_off_by_one")
+    assert (ratio <= 1.0) == (fault in (None, "count_off_by_one"))
