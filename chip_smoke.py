@@ -15,9 +15,14 @@ Phases (any failure raises; the exit code is then non-zero):
      build time and the compiler's register report;
   2. K1 Poisson kernel vs plain: Philox known answers, 1M draws at six
      rates (mean/variance z-scores within +-5, >= 99.9% of draws equal),
-     and the slice's real (256*4, 514) rate array;
-  3. K2 TOF-histogram kernel vs plain on the slice's real lattice and on
-     the np.histogram edge cases;
+     and the slice's real (256, 514) rates drawn for 4 runs; the rates
+     given per walker equal the rates copied per run, and the seed in a
+     device tensor equals the seed by value, draw for draw;
+  3. K2 TOF-histogram kernel vs plain on the slice's real lattice (within
+     1e-6 of each row's total), the same on a second call, each bin the
+     float32 nearest to the float64 sum of its weights, and the
+     np.histogram edge cases exactly; then one K1 and one K2 launch in a
+     CUDA graph, replayed with two seed tensors;
   4. K4 transport-moments kernel vs plain on one half-step's initial
      energies (128 walkers x 4 runs x 200k): bins equal on >= 99.99% of
      (sample, depth) pairs, moments within 1e-5 of each row's total, and
@@ -27,15 +32,22 @@ Phases (any failure raises; the exit code is then non-zero):
      energies and cross sections (5,120 rows x 200k), within 1e-6 of each
      row's total, the same on a second call, and its np.histogram edge
      cases exactly;
-  6. kernel, plain and library times at the half-step shapes (CUDA events,
-     median) beside each kernel's bound (and K4's instruction-issue
-     floor);
+  6. kernel and library times at the half-step shapes as device times
+     with the host out of them (K1, K2, torch.poisson: 100 launches in a
+     replayed CUDA graph; K3, K4: queued behind a launch of their own),
+     beside each kernel's bound (and K4's instruction-issue floor), the
+     launch floor (an empty kernel in the same graph), the host's enqueue
+     cost per call, and a cross-check: events around one call on an idle
+     card; the plain versions by events around single calls;
   7. counts: the GPU forward vs the CPU forward on 8 walkers, then the
      full-width fit for both likelihoods (K1 and K2 must be launched);
   8. mc: the GPU forward vs the CPU forward on 8 walkers with the same
      initial energies, for 'taylor' and 'exact' (relative L1 < 1e-4);
      the full-width 'taylor' fit for both likelihoods (K2 and K4 must be
-     launched), then a few steps of the 'exact' configuration (K2, K3).
+     launched), then a few steps of the 'exact' configuration (K2, K3);
+  9. the second cross-check of phase 6: torch.profiler's kernel durations
+     of K1 and K2 beside the graph's (last, because a profiler that has
+     run makes every later launch dearer for the host).
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
@@ -57,7 +69,7 @@ from mcmctoffitting_tpu_torch.ops import stopping
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import philox_cuda, poisson
 from mcmctoffitting_tpu_torch.ops.cuda_tof import (tof_hist_segments,
                                                    tof_hist_segments_plain)
-from mcmctoffitting_tpu_torch.utils import data_io
+from mcmctoffitting_tpu_torch.utils import data_io, devtime
 
 N_WALKERS, N_RUNS, N_DRAWS = 256, 4, 200_000
 N_WARM, N_TIMED = 20, 200            # counts fit
@@ -95,7 +107,10 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps=30, warmup=3):
-    """Median device time of one call, CUDA events around each call."""
+    """Median time of one call, CUDA events around each call on an idle
+    card: the host's enqueue path is inside the interval, so this is for
+    the plain versions (many launches each) and as the cross-check of
+    what a kernel of a few microseconds is not."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -129,7 +144,9 @@ def poisson_z(counts, lam):
     return z_mean, z_var
 
 
-def phase_poisson(dev, rates):
+def phase_poisson(dev, rates_w, n_runs):
+    """K1 vs plain; ``rates_w`` (W, F + 2) are the slice's rates per
+    walker, drawn for ``n_runs`` runs as the counts path draws them."""
     kat_in = np.array([[0, 0, 0, 0, 0, 0], [0xFFFFFFFF] * 6,
                        [0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344,
                         0xa4093822, 0x299f31d0]], np.uint32)
@@ -154,9 +171,17 @@ def phase_poisson(dev, rates):
         require(max(map(abs, zk + zp)) < 5, f"z-scores at lam={lam}")
         require(same >= 0.999, f"kernel == plain at lam={lam}")
 
-    lam = rates.contiguous()
-    kern = poisson(lam, (7, 8))
+    lam = rates_w[:, None].expand(-1, n_runs, -1).contiguous()
+    kern = poisson(rates_w, (7, 8), n_runs=n_runs)
     plain = plain_poisson.poisson_ptrs(lam, (7, 8))
+    require(torch.equal(kern, poisson(lam, (7, 8))),
+            "K1 on rates per walker == K1 on the rates copied per run")
+    words = torch.tensor([7, 8], dtype=torch.int64, device=dev)
+    require(torch.equal(kern, poisson(rates_w, words, n_runs=n_runs)),
+            "K1 with the seed in a device tensor == K1 with it by value")
+    log("phase 2b: K1 on (W, F+2) rates with a run count equals K1 on the "
+        "expanded (W, R, F+2) rates, and the seed as a device tensor "
+        "equals the seed by value, draw for draw")
     same = (kern == plain).double().mean().item()
     err = (kern - plain).abs().max().item()
     zk, zp = poisson_z(kern, lam), poisson_z(plain, lam)
@@ -174,11 +199,29 @@ def phase_tof(dev, base, draws, forward):
     plain = tof_hist_segments_plain(base, draws, zt, zw, win)
     total = (draws[..., None] * zw).sum(dim=(-3, -2, -1))[..., None]
     err = (kern - plain).abs()
-    require(bool(torch.all(err <= 1e-5 * plain.abs() + 1e-5 * total)),
+    # both sum float32 weights, ~70 per bin, in different orders: the
+    # difference stays below 1e-6 of the row's total weight
+    require(bool(torch.all(err <= 1e-6 * total)),
             "K2 kernel vs plain on the slice's lattice")
+    again = tof_hist_segments(base, draws, zt, zw, win)
     log(f"phase 3: TOF kernel vs plain on {tuple(base.shape)}: "
         f"max|diff|={err.max().item():g} "
-        f"(max rel to row total {(err / total).max().item():.2e})")
+        f"(max rel to row total {(err / total).max().item():.2e}); a second "
+        f"call equal: {torch.equal(kern, again)}")
+    require(torch.equal(kern, again), "K2 the same on every call")
+    # the kernel sums in fixed point and rounds once: every bin is the
+    # float32 nearest to the float64 sum of its float32 weights (half an
+    # ulp, 6e-8), up to the 2^-39 of the row's total that the fixed point
+    # drops of each of the row's samples
+    exact = tof_hist_segments_plain(base, draws, zt, zw, win, torch.float64)
+    off = (kern.double() - exact).abs()
+    log(f"phase 3: TOF kernel vs the float64 sums: max|diff|="
+        f"{off.max().item():g} (max rel to the bin "
+        f"{(off / exact.abs().clamp_min(1e-30)).max().item():.2e})")
+    n_samples = base.shape[-2] * base.shape[-1] * zt.shape[1]
+    require(bool(torch.all(off <= 6e-8 * exact.abs()
+                           + n_samples * 2.0 ** -39 * total)),
+            "K2 kernel: each bin the float32 nearest to its exact sum")
 
     # np.histogram edge cases, exact: v == hi -> last bin, v == lo -> first
     # bin, just outside and NaN -> dropped, padding bins zero
@@ -202,6 +245,41 @@ def phase_tof(dev, base, draws, forward):
     log("phase 3: TOF kernel edge cases exact (v == hi, v == lo, outside, "
         "NaN, padding)")
     return err.max().item()
+
+
+def phase_graph(dev, rates_w, n_runs, base, draws, forward):
+    """One K1 launch (seed in a device tensor) and one K2 launch captured
+    in a CUDA graph and replayed with two seeds: the K1 draws equal the
+    uncaptured kernel's and the plain version's for each seed, the K2
+    output equals the uncaptured call."""
+    zt, zw, win = forward.zt, forward.zw, forward.win
+    lam = rates_w[:, None].expand(-1, n_runs, -1).contiguous()
+    want_hist = tof_hist_segments(base, draws, zt, zw, win)
+    seed = torch.zeros(2, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        counts = poisson(rates_w, seed, n_runs=n_runs)
+        hist = tof_hist_segments(base, draws, zt, zw, win)
+    drawn = []
+    for words in ((11, 12), (0xDEADBEEF, 0x12345678)):
+        seed.copy_(torch.tensor(words, dtype=torch.int64))
+        counts.zero_()
+        hist.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = (counts == plain_poisson.poisson_ptrs(lam, words))
+        require(torch.equal(counts, poisson(rates_w, words, n_runs=n_runs)),
+                f"replayed K1 == uncaptured K1 at seed {words}")
+        require(same.double().mean().item() >= 0.999,
+                f"replayed K1 == plain at seed {words}")
+        require(torch.equal(hist, want_hist),
+                f"replayed K2 == uncaptured K2 (replay at seed {words})")
+        drawn.append(counts.clone())
+    require(not torch.equal(*drawn), "a new seed tensor gives new draws")
+    log("phase 3b: a CUDA graph of one K1 and one K2 launch, replayed with "
+        "two seed tensors: K1 equals the uncaptured kernel and the plain "
+        "version for each seed, K2 equals the uncaptured call")
 
 
 def in_range_bins(e, bins):
@@ -382,12 +460,13 @@ def main():
         N_WALKERS * N_RUNS, -1)
     require(lam.shape == (1024, 514), f"rate array shape {lam.shape}")
 
-    k1_err = phase_poisson(dev, lam)
+    k1_err = phase_poisson(dev, rates.lam, N_RUNS)
     grids, e0_means = forward.grid_and_mean(p0[:, :4],
                                             torch.Generator().manual_seed(3))
     base, draws = forward.lattice(grids, e0_means)
     base, draws = base.contiguous(), draws.contiguous()
     k2_err = phase_tof(dev, base, draws, forward)
+    phase_graph(dev, rates.lam, N_RUNS, base, draws, forward)
 
     # phases 4-5: K4 and K3 on one half-step of the mc path (128 walkers x
     # 4 runs x 200k initial energies from the forward's own draw)
@@ -417,6 +496,7 @@ def main():
 
     # phase 6: times at the half-step shapes, beside the bounds
     lam_h = lam[: half * N_RUNS].contiguous()
+    rates_h = rates.lam[:half].contiguous()
     b_h, d_h = base[:half].contiguous(), draws[:half].contiguous()
     zt, zw, win = forward.zt, forward.zw, forward.win
     # K3 as the 'exact' path launches it: one chunk of (walker, run) rows
@@ -429,27 +509,65 @@ def main():
                 v_c[start:start + 512], eb.lo, eb.hi, eb.n,
                 w_c[start:start + 512])
 
+    def k1_call():          # as the counts path calls it
+        return poisson(rates_h, (5, 6), n_runs=N_RUNS)
+
+    def k2_call():
+        return tof_hist_segments(b_h, d_h, zt, zw, win)
+
+    def k3_call():
+        return cuda_hist.weighted_histogram(v_c, eb.lo, eb.hi, eb.n, w_c)
+
+    def k4_call():
+        return cuda_transport.transport_moments(e0_h, rk4, mbins)
+
+    # device times with the host out of them (utils/devtime.py): K1, K2
+    # and torch.poisson as 100 launches in a replayed CUDA graph, K3 and K4
+    # (0.5 and 8 ms, far above their enqueue) queued behind a launch of
+    # their own; the plain versions (many launches each, K1's with a
+    # synchronize inside) by events around single calls, as before
+    floor_ms = devtime.launch_floor_ms(dev)
     times = {
-        "poisson": (cuda_ms(lambda: poisson(lam_h, (5, 6))),
+        "poisson": (devtime.graph_ms(k1_call),
                     cuda_ms(lambda: plain_poisson.poisson_ptrs(lam_h, (5, 6)),
                             reps=20),
-                    cuda_ms(lambda: torch.poisson(lam_h))),
-        "tof_hist": (cuda_ms(lambda: tof_hist_segments(b_h, d_h, zt, zw,
-                                                       win)),
+                    devtime.graph_ms(lambda: torch.poisson(lam_h))),
+        "tof_hist": (devtime.graph_ms(k2_call),
                      cuda_ms(lambda: tof_hist_segments_plain(b_h, d_h, zt,
                                                              zw, win)),
                      None),
-        "weighted_hist": (cuda_ms(lambda: cuda_hist.weighted_histogram(
-            v_c, eb.lo, eb.hi, eb.n, w_c), reps=20), cuda_ms(
-                plain_hist, reps=3, warmup=1), None),
-        "transport_moments": (cuda_ms(lambda: cuda_transport.
-                                      transport_moments(e0_h, rk4, mbins),
-                                      reps=10),
+        "weighted_hist": (devtime.queued_ms(k3_call, launches=20),
+                          cuda_ms(plain_hist, reps=3, warmup=1), None),
+        "transport_moments": (devtime.queued_ms(k4_call, launches=10),
                               cuda_ms(lambda: cuda_transport.
                                       transport_moments_plain(e0_h, rk4,
                                                               mbins),
                                       reps=3, warmup=1), None),
     }
+    enqueue = {"poisson": devtime.enqueue_us(k1_call),
+               "tof_hist": devtime.enqueue_us(k2_call),
+               "weighted_hist": devtime.enqueue_us(k3_call, calls=20),
+               "transport_moments": devtime.enqueue_us(k4_call, calls=10,
+                                                       rounds=3)}
+    # cross-check: what events around one call on an idle card give (the
+    # host's enqueue path included)
+    single = {"poisson": cuda_ms(k1_call), "tof_hist": cuda_ms(k2_call),
+              "torch.poisson": cuda_ms(lambda: torch.poisson(lam_h))}
+    log(f"phase 6 ({smi}): launch floor (an empty kernel in a replayed "
+        f"graph) {floor_ms:.5f} ms; events around one call on an idle "
+        f"card: K1 {single['poisson']:.4f}, K2 {single['tof_hist']:.4f}, "
+        f"torch.poisson {single['torch.poisson']:.4f} ms")
+    # the counts path's draw as it was before K1 read the rates per walker:
+    # a copy of the rates along the run axis (one more kernel), then K1
+    def k1_with_copy():
+        return poisson(rates_h[:, None].expand(half, N_RUNS, -1)
+                       .contiguous(), (5, 6))
+
+    log(f"phase 6: K1 behind a copy of the rates along the run axis: "
+        f"{devtime.graph_ms(k1_with_copy):.5f} ms, enqueue "
+        f"{devtime.enqueue_us(k1_with_copy):.1f} us; K1 on the rates per "
+        f"walker: {times['poisson'][0]:.5f} ms, enqueue "
+        f"{enqueue['poisson']:.1f} us")
     # bounds: each input read once, each output written once; operations
     # counted at the float32 rate, what these inputs need
     n_lam = lam_h.numel()
@@ -469,7 +587,7 @@ def main():
     bounds = {
         # per rate: one Philox block (~100 integer operations) and the
         # inversion / PTRS arithmetic of one accepted round (~30)
-        "poisson": bound(8 * n_lam, 130 * n_lam),
+        "poisson": bound(4 * (rates_h.numel() + n_lam), 130 * n_lam),
         # per segment sample: add, product, two compares; in range:
         # subtract, scale, floor, clamp, atomic add
         "tof_hist": bound(4 * (2 * b_h.numel() + 2 * zt.numel()
@@ -493,10 +611,10 @@ def main():
               "transport_moments": tuple(e0_h.shape)}
     for name, (k_ms, p_ms, l_ms) in times.items():
         b_ms, b_by = bounds[name]
-        log(f"phase 6 ({smi}): {name} {shapes[name]}: kernel {k_ms:.4f} ms, "
+        log(f"phase 6 ({smi}): {name} {shapes[name]}: kernel {k_ms:.5f} ms, "
             f"plain {p_ms:.4f} ms, library "
             f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms ({b_by})"
+            f"{b_ms:.4f} ms ({b_by}), enqueue {enqueue[name]:.1f} us"
             + (f", instruction-issue floor {issue_floor[name]:.4f} ms"
                if name in issue_floor else ""))
     log(f"phase 6: in-range shares: K2 {k2_in / (b_h.numel() * 10):.4f}, "
@@ -571,6 +689,34 @@ def main():
             and launches["mc_exact"]["tof_hist"] > 0,
             "K3 and K2 launched on the mc 'exact' path")
 
+    # phase 9: the second cross-check of phase 6's device times, the kernel
+    # durations torch.profiler reports for eager calls.  It comes last: once
+    # the profiler has run in a process, every later launch costs the host
+    # more, which the host-bound counts fit would show (~2 ms per step).
+    profiled = {
+        "poisson": devtime.profiler_kernel_ms(k1_call, "poisson_kernel"),
+        "tof_hist": devtime.profiler_kernel_ms(k2_call, "tof_hist"),
+        "torch.poisson": devtime.profiler_kernel_ms(
+            lambda: torch.poisson(lam_h), "poisson"),
+        "empty": devtime.profiler_kernel_ms(
+            lambda: devtime.empty_launch(dev), "empty_kernel")}
+    log(f"phase 9 ({smi}): torch.profiler's kernel durations: K1 "
+        f"{profiled['poisson']:.5f}, K2 {profiled['tof_hist']:.5f}, "
+        f"torch.poisson {profiled['torch.poisson']:.5f}, empty kernel "
+        f"{profiled['empty']:.5f} ms")
+    for name in ("poisson", "tof_hist"):
+        # the graph times a kernel and the card's gap to the next one, the
+        # profiler the kernel alone.  Where they are more than 20% apart
+        # (or the profiler saw no kernel: NaN), the graph's time is the one
+        # reported: it is the card's own clock over 500 launches, while the
+        # profiler's durations depend on its tracing being available
+        ratio = times[name][0] / profiled[name]
+        agree = 0.8 <= ratio <= 1.2
+        log(f"phase 9: {name}: graph {times[name][0]:.5f} ms / profiler "
+            f"{profiled[name]:.5f} ms = {ratio:.3f}: "
+            + ("the two agree" if agree else
+               "more than 20% apart, the graph's time is reported"))
+
     errs = {"poisson": k1_err, "tof_hist": k2_err, "weighted_hist": k3_err,
             "transport_moments": k4_err}
     meta = {
@@ -592,7 +738,10 @@ def main():
             "launches": launches[path][name], "max_abs_err": errs[name],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms,
-            "issue_floor_ms": issue_floor.get(name)})
+            "issue_floor_ms": issue_floor.get(name),
+            "enqueue_us": enqueue[name], "launch_floor_ms": floor_ms,
+            "profiler_ms": profiled.get(name),
+            "single_call_ms": single.get(name)})
     print(json.dumps({"kernels": kernels, "walker_steps_per_s": rate,
                       "acceptance": acc, "launches_by_path": launches}))
     print(smi)

@@ -68,6 +68,8 @@
 
 #include <algorithm>
 
+#include "device_guard.cuh"
+
 namespace mcmctof {
 namespace {
 
@@ -218,7 +220,8 @@ extern "C" int mcmctof_transport_moments(
     int n_rows, long long n, int n_x, int n_sub, int n_bins, float a,
     float p, float q, float floor_e, float lo, float hi, float inv_width,
     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  mcmctof::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_x < 1 || n_x > mcmctof::kTmMaxSpans || n_bins < 1 || n_sub < 1)
     return static_cast<int>(cudaErrorInvalidValue);

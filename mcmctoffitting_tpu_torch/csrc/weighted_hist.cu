@@ -60,6 +60,8 @@
 
 #include <algorithm>
 
+#include "device_guard.cuh"
+
 namespace mcmctof {
 namespace {
 
@@ -264,7 +266,8 @@ extern "C" int mcmctof_weighted_hist_max_bins() { return mcmctof::kWhMaxBins; }
 extern "C" int mcmctof_weighted_hist_blocks(int n_rows, long long n_valid,
                                             int n_bins, int device,
                                             long long* blocks) {
-  cudaError_t err = cudaSetDevice(device);
+  mcmctof::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = mcmctof::check_sizes(n_rows, n_valid, n_valid, n_bins);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -289,7 +292,8 @@ extern "C" int mcmctof_weighted_hist(const float* values,
                                      long long n_valid, float lo, float hi,
                                      float scale, int n_bins, int device,
                                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  mcmctof::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = mcmctof::check_sizes(n_rows, row_len, n_valid, n_bins);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -365,10 +365,10 @@ class TofForward(torch.nn.Module):
 
     def _counts_grid_and_mean(self, params, generator):
         rates = self.counts_rates(params)
-        n_walkers = params.shape[0]
-        lam = rates.lam[:, None, :].expand(
-            n_walkers, self.n_runs, rates.lam.shape[-1]).contiguous()
-        counts = poisson(lam, seed_words(generator))          # (W, R, F+2)
+        # every run of a walker draws from the walker's rates: the kernel
+        # reads them once per run, no copy along the run axis
+        counts = poisson(rates.lam, seed_words(generator),
+                         n_runs=self.n_runs)                  # (W, R, F+2)
         per_run = CountsRates(*(t[:, None] for t in rates))  # run axis
         moments, e0_means = moments_from_counts(self.e0grid, counts, per_run)
         return _e0grid_contract(self.e0grid, moments), e0_means
@@ -461,8 +461,7 @@ class TofForward(torch.nn.Module):
                 scales: torch.Tensor):
         """TOF stage: lattice -> (W, R, n_pad) density spectra times the
         run scales (W, R), zero past each run's n_bins."""
-        hist = tof_hist_segments(base_tof.contiguous(), draws.contiguous(),
-                                 self.zt, self.zw, self.win)
+        hist = tof_hist_segments(base_tof, draws, self.zt, self.zw, self.win)
         hist = hist / (torch.sum(hist, dim=-1, keepdim=True)
                        * self.bin_widths)
         hist = apply_same_matrix(hist, self.timing)

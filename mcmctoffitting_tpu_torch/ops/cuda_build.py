@@ -27,6 +27,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _LIB_NAME = "libmcmctof_kernels.so"
@@ -40,16 +42,22 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes (each returns an int: a cudaError_t,
-# or the bin cap of mcmctof_weighted_hist_max_bins)
+# the bin cap of mcmctof_weighted_hist_max_bins, or the byte count of
+# mcmctof_tof_hist_plan)
 _SIGNATURES = {
-    # lam, out, n, seed0, seed1, device, stream
-    "mcmctof_poisson": [_P, _P, _L, ctypes.c_uint32,
+    # lam, out, n, row_len, n_rep, seed words (device, or null), seed0,
+    # seed1, device, stream
+    "mcmctof_poisson": [_P, _P, _L, _L, _L, _P, ctypes.c_uint32,
                         ctypes.c_uint32, _I, _P],
     # counter/key words (n, 6), out words (n, 4), n, device, stream
     "mcmctof_philox": [_P, _P, _L, _I, _P],
-    # base, draws, zt, zw, lo, hi, scale, nb1, out,
-    # n_rows, n_runs, n_cells, n_ed, n_seg, n_pad, device, stream
-    "mcmctof_tof_hist": [_P] * 9 + [_I] * 7 + [_P],
+    # base, draws, zt (K, Be), zw (K, Be), max_b sum_k |zw| (1,), lo, hi,
+    # scale, nb1, out, n_rows, n_runs, n_cells, n_ed, n_seg, n_pad, device,
+    # stream
+    "mcmctof_tof_hist": [_P] * 10 + [_I] * 7 + [_P],
+    # n_cells, n_seg, n_pad -> shared memory (bytes) of the fast kernel, or
+    # 0 where the general kernel serves
+    "mcmctof_tof_hist_plan": [_I] * 3,
     # values, weights, out, parts, blocks, n_rows, row_len, n_valid, lo,
     # hi, scale, n_bins, device, stream
     "mcmctof_weighted_hist": [_P, _P, _P, _P, _L, _I, _L, _L, _F, _F, _F,
@@ -62,6 +70,8 @@ _SIGNATURES = {
     # floor, lo, hi, inv_width, device, stream
     "mcmctof_transport_moments": [_P] * 4 + [_I, _L, _I, _I, _I]
     + [_F] * 7 + [_I, _P],
+    # device, stream: an empty kernel (the launch floor of utils/devtime.py)
+    "mcmctof_empty_kernel": [_I, _P],
 }
 
 
@@ -93,6 +103,15 @@ def source_hash() -> str:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def current_stream_ptr(device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``
+    (inside a CUDA graph capture: the capturing stream)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:            # no Stream object built per call
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

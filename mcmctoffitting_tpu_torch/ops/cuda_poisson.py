@@ -10,32 +10,65 @@ element.  ``poisson.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 
-from .cuda_build import check, load_library
+from .cuda_build import check, current_stream_ptr, load_library
 from .poisson import poisson_ptrs
 
+Seed = Union[tuple, torch.Tensor]
 
-def poisson(lam: torch.Tensor, seed: tuple[int, int]) -> torch.Tensor:
-    """Exact Poisson draws of a contiguous float32 rate tensor; ``seed``
-    is two 32-bit words drawn on the host (``poisson.seed_words``)."""
+
+def poisson(lam: torch.Tensor, seed: Seed,
+            n_runs: Optional[int] = None) -> torch.Tensor:
+    """Exact Poisson draws of a contiguous float32 rate tensor.
+
+    ``seed`` is two 32-bit words: a pair of ints drawn on the host
+    (``poisson.seed_words``), or an int64 tensor of two words on the rates'
+    device, which the kernel reads when it runs (a launch captured in a
+    CUDA graph then draws anew when the tensor is refilled between
+    replays).  With ``n_runs``, rates (..., C) are drawn once per run,
+    (..., n_runs, C): the draws of the rates copied along a run axis,
+    without the copy.
+    """
     if lam.dtype != torch.float32:
         raise TypeError(f"poisson: rates must be float32, got {lam.dtype}")
+    by_tensor = isinstance(seed, torch.Tensor)
+    if by_tensor:
+        if seed.dtype != torch.int64 or seed.shape != (2,):
+            raise TypeError("poisson: a seed tensor holds two int64 words")
+        if seed.device != lam.device:
+            raise ValueError(f"poisson: seed on {seed.device}, rates on "
+                             f"{lam.device}")
+    elif len(seed) != 2:
+        raise ValueError("poisson: seed is two 32-bit words")
+    shape = lam.shape
+    if n_runs is not None:
+        if n_runs < 1 or lam.dim() < 1:
+            raise ValueError(f"poisson: n_runs={n_runs} on rates of shape "
+                             f"{tuple(shape)}")
+        shape = shape[:-1] + (n_runs, shape[-1])
     if lam.device.type == "cpu":
-        return poisson_ptrs(lam, seed)
+        rates = lam if n_runs is None else lam[..., None, :].expand(shape)
+        return poisson_ptrs(rates, seed)
     if lam.device.type != "cuda":
         raise ValueError(f"poisson: no kernel for device {lam.device}")
     if not lam.is_contiguous():
         raise ValueError("poisson: rates must be contiguous")
-    out = torch.empty_like(lam)
-    if lam.numel() == 0:
+    out = torch.empty(shape, dtype=torch.float32, device=lam.device)
+    n = out.numel()
+    if n == 0:
         return out
-    lib = load_library().lib
-    stream = torch.cuda.current_stream(lam.device).cuda_stream
-    check(lib.mcmctof_poisson(lam.data_ptr(), out.data_ptr(), lam.numel(),
-                              int(seed[0]) & 0xFFFFFFFF,
-                              int(seed[1]) & 0xFFFFFFFF, lam.device.index,
-                              stream), "poisson kernel launch")
+    if by_tensor:
+        words, s0, s1 = seed.data_ptr(), 0, 0
+    else:
+        words, s0, s1 = None, int(seed[0]) & 0xFFFFFFFF, \
+            int(seed[1]) & 0xFFFFFFFF
+    check(load_library().lib.mcmctof_poisson(
+        lam.data_ptr(), out.data_ptr(), n, shape[-1], n_runs or 1, words,
+        s0, s1, lam.device.index, current_stream_ptr(lam.device)),
+        "poisson kernel launch")
     poisson.launches += 1
     return out
 
@@ -53,9 +86,8 @@ def philox_cuda(words: torch.Tensor) -> torch.Tensor:
     words = words.contiguous()
     out = torch.empty((words.shape[0], 4), dtype=torch.int32,
                       device=words.device)
-    lib = load_library().lib
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    check(lib.mcmctof_philox(words.data_ptr(), out.data_ptr(),
-                             words.shape[0], words.device.index, stream),
-          "philox kernel launch")
+    check(load_library().lib.mcmctof_philox(
+        words.data_ptr(), out.data_ptr(), words.shape[0],
+        words.device.index, current_stream_ptr(words.device)),
+        "philox kernel launch")
     return out

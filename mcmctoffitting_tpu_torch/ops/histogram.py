@@ -48,17 +48,19 @@ def window_constants(windows, *, device) -> WindowConstants:
 
 def weighted_histogram_multi_window(values: torch.Tensor,
                                     win: WindowConstants,
-                                    weights: torch.Tensor) -> torch.Tensor:
+                                    weights: torch.Tensor,
+                                    sum_dtype=torch.float32) -> torch.Tensor:
     """Per-run histograms: values/weights (..., R, N) -> (..., R, n_pad),
-    row r binned against window r."""
+    row r binned against window r; the float32 weights are summed, and
+    returned, in ``sum_dtype``."""
     lo, hi = win.lo[:, None], win.hi[:, None]
     in_range = (values >= lo) & (values <= hi)
     scaled = torch.floor((values - lo) * win.scale[:, None])
     # out-of-range (and NaN) values get index 0 and weight 0
     idx = torch.where(in_range, scaled, 0.0).to(torch.int64)
     idx = torch.minimum(torch.clamp_min(idx, 0), win.nb1[:, None].long())
-    w = torch.where(in_range, weights.to(torch.float32), 0.0)
-    out = torch.zeros(values.shape[:-1] + (win.n_pad,), dtype=torch.float32,
+    w = torch.where(in_range, weights.to(torch.float32), 0.0).to(sum_dtype)
+    out = torch.zeros(values.shape[:-1] + (win.n_pad,), dtype=sum_dtype,
                       device=values.device)
     return out.scatter_add_(-1, idx, w)
 

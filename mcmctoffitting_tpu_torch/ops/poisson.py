@@ -124,16 +124,21 @@ def _small_inversion(u, lam):
     return cnt
 
 
-def poisson_ptrs(lam: torch.Tensor, seed: tuple[int, int]) -> torch.Tensor:
+def poisson_ptrs(lam: torch.Tensor, seed) -> torch.Tensor:
     """Exact Poisson draws of a float32 rate tensor (any shape, any
-    device) on the Philox stream keyed by ``seed`` (two 32-bit words).
-    NaN or negative rates draw 0."""
+    device) on the Philox stream keyed by ``seed``: two 32-bit words, as
+    a pair of ints or as an int64 tensor of two words (read without a
+    synchronize).  NaN or negative rates draw 0."""
     shape = lam.shape
     lam = lam.reshape(-1).to(torch.float32)
     lam = torch.where(lam > 0.0, lam, 0.0)
     idx = torch.arange(lam.numel(), dtype=torch.int64, device=lam.device)
     ctr_lo, ctr_hi = idx & _MASK32, idx >> 32
-    key = (int(seed[0]) & _MASK32, int(seed[1]) & _MASK32)
+    if isinstance(seed, torch.Tensor):
+        words = seed.to(device=lam.device, dtype=torch.int64) & _MASK32
+        key = (words[0], words[1])
+    else:
+        key = (int(seed[0]) & _MASK32, int(seed[1]) & _MASK32)
 
     def bits(round_):
         return philox4x32_10((ctr_lo, ctr_hi, round_, 0), key)

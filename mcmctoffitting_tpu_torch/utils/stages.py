@@ -78,10 +78,8 @@ def _stages(problem, thetas, obs, gen):
 
     if spec.sampling == "counts":
         def k1():
-            rates = out["rates"]
-            lam = rates.lam[:, None, :].expand(
-                params.shape[0], fwd.n_runs, rates.lam.shape[-1])
-            return poisson(lam.contiguous(), seed_words(gen))
+            return poisson(out["rates"].lam, seed_words(gen),
+                           n_runs=fwd.n_runs)
 
         def moments():
             per_run = CountsRates(*(t[:, None] for t in out["rates"]))

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from mcmctoffitting_tpu_torch.config import SIMULTFIT_X_BINNING
-from mcmctoffitting_tpu_torch.constants import tof_windows
+from mcmctoffitting_tpu_torch.constants import TofWindow, tof_windows
 from mcmctoffitting_tpu_torch.ops import cuda_hist, cuda_transport
 from mcmctoffitting_tpu_torch.ops.cuda_build import load_library
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
@@ -71,6 +71,157 @@ def test_tof_kernel_matches_plain(dev):
     want = tof_hist_segments_plain(base, draws, zt, zw, win)
     total = (draws[..., None] * zw).sum(dim=(-3, -2, -1)).max().item()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * total)
+
+
+def _k2_inputs(rng, dev, shape, windows, k=10):
+    """Random lattice (base, draws) of ``shape`` = (..., R, M, Be), tables
+    (Be, k) and the window constants, on ``dev``."""
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    be = shape[-1]
+    return (t(rng.uniform(120, 270, shape)), t(rng.uniform(0, 50, shape)),
+            t(rng.uniform(-6, 6, (be, k))), t(rng.uniform(0, 1, (be, k))),
+            window_constants(windows, device=dev))
+
+
+def _k2_check(base, draws, zt, zw, win, tol=1e-6):
+    """Kernel vs plain within ``tol`` of the row's total weight: both sum
+    float32 weights in their own order (1e-6 at the ~70 weights per bin of
+    the lattice; more where thousands meet in one bin)."""
+    got = tof_hist_segments(base, draws, zt, zw, win)
+    want = tof_hist_segments_plain(base, draws, zt, zw, win)
+    total = (draws[..., None] * zw).sum(dim=(-3, -2, -1))[..., None]
+    assert got.shape == want.shape
+    assert torch.all((got - want).abs() <= tol * total)
+    return got
+
+
+SIMULT_WINDOWS = tuple(tof_windows[n] for n in ("mid", "close", "close",
+                                                "far"))
+
+
+@pytest.mark.parametrize("case", ["one_row", "rows_4096", "one_bin",
+                                  "bins_300", "bins_over_the_fast_cap",
+                                  "all_outside", "zero_draws", "nan_base",
+                                  "few_cells"])
+def test_tof_kernel_edge_cases(dev, case):
+    rng = np.random.default_rng(5)
+    windows, shape, k = SIMULT_WINDOWS, (3, 4, 10, 50), 10
+    if case == "one_row":
+        windows, shape = (tof_windows["mid"],), (1, 10, 50)
+    elif case == "rows_4096":
+        shape = (1024, 4, 10, 50)
+    elif case == "one_bin":
+        windows = (TofWindow(100.0, 300.0, 1),) * 2
+        shape = (3, 2, 10, 50)
+    elif case == "bins_300":
+        windows = (TofWindow(130.0, 260.0, 300), TofWindow(175.0, 225.0, 50))
+        shape = (3, 2, 10, 50)
+    elif case == "bins_over_the_fast_cap":
+        windows = (TofWindow(130.0, 260.0, 40_000),
+                   TofWindow(175.0, 225.0, 50))
+        shape = (3, 2, 10, 50)
+    elif case == "few_cells":          # fewer cells than threads per row
+        shape, k = (5, 4, 3, 7), 3
+    base, draws, zt, zw, win = _k2_inputs(rng, dev, shape, windows, k)
+    # the C library picks the kernel: the fast one while its histogram and
+    # tables fit a block's shared memory, else the general one
+    plan = load_library().lib.mcmctof_tof_hist_plan(
+        shape[-2] * shape[-1], k, win.n_pad)
+    assert (plan == 0) == (case == "bins_over_the_fast_cap")
+    if case == "all_outside":
+        base += 1000.0
+    elif case == "zero_draws":
+        draws.zero_()
+    elif case == "nan_base":
+        base[..., ::3] = float("nan")
+    got = _k2_check(base, draws, zt, zw, win,
+                    tol=1e-5 if case == "one_bin" else 1e-6)
+    if plan:
+        # the fast kernel sums in fixed point: the same on every call, and
+        # every bin the float32 nearest to its exact sum (half an ulp), up
+        # to the 2^-39 of the row's total dropped of each sample
+        assert torch.equal(got, tof_hist_segments(base, draws, zt, zw, win))
+        exact = tof_hist_segments_plain(base, draws, zt, zw, win,
+                                        torch.float64)
+        total = (draws[..., None] * zw).sum(dim=(-3, -2, -1))[..., None]
+        n_samples = shape[-2] * shape[-1] * k
+        assert torch.all((got.double() - exact).abs()
+                         <= 6e-8 * exact.abs()
+                         + n_samples * 2.0 ** -39 * total)
+    if case in ("all_outside", "zero_draws"):
+        assert torch.count_nonzero(got) == 0
+    if case == "one_bin":
+        total = (draws[..., None] * zw).sum(dim=(-3, -2, -1))
+        torch.testing.assert_close(got[..., 0], total, rtol=1e-5, atol=0)
+
+
+def test_tof_kernel_bins_above_the_opt_in_threshold(dev):
+    """More bins than 48 KB of shared memory hold: the fast kernel opts in
+    to more, and still sums exactly."""
+    rng = np.random.default_rng(6)
+    windows = (TofWindow(130.0, 260.0, 8000), TofWindow(175.0, 225.0, 50))
+    base, draws, zt, zw, win = _k2_inputs(rng, dev, (3, 2, 10, 50), windows)
+    plan = load_library().lib.mcmctof_tof_hist_plan(500, 10, 8000)
+    assert plan > 48 * 1024
+    got = _k2_check(base, draws, zt, zw, win)
+    assert torch.equal(got, tof_hist_segments(base, draws, zt, zw, win))
+
+
+K1_EDGE_RATES = [0.0, float("nan"), -3.0, 9.999, 10.0, 1.0e7]
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 100_003])
+def test_poisson_kernel_edge_rates_and_lengths(dev, n):
+    """The branch boundary, rates that draw 0, a huge rate, and lengths
+    that are not a multiple of the block: every draw equals the plain
+    version's (same stream, same formulas)."""
+    lam = torch.tensor(K1_EDGE_RATES, device=dev).repeat(-(-n // 6))[:n]
+    lam = lam.contiguous()
+    got = poisson(lam, (21, 22))
+    want = plain_poisson.poisson_ptrs(lam, (21, 22))
+    assert (got == want).double().mean().item() >= 0.999
+    dead = ~(lam > 0)
+    assert torch.count_nonzero(got[dead]) == 0
+    assert torch.all(got == torch.floor(got)) and torch.all(got >= 0)
+
+
+def test_poisson_kernel_empty_and_forms(dev):
+    assert poisson(torch.empty((0, 7), device=dev), (1, 2)).shape == (0, 7)
+    assert poisson(torch.empty((0, 7), device=dev), (1, 2),
+                   n_runs=3).shape == (0, 3, 7)
+    lam = torch.as_tensor(np.geomspace(1e-3, 3e4, 16 * 130).astype(
+        np.float32), device=dev).reshape(16, 130)
+    want = poisson(lam[:, None].expand(-1, 4, -1).contiguous(), (3, 4))
+    assert torch.equal(poisson(lam, (3, 4), n_runs=4), want)
+    words = torch.tensor([3, 4], dtype=torch.int64, device=dev)
+    assert torch.equal(poisson(lam, words, n_runs=4), want)
+    with pytest.raises(ValueError, match="seed on"):
+        poisson(lam, words.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        poisson(lam.t(), (3, 4))
+
+
+def test_poisson_and_tof_kernels_replay_in_a_cuda_graph(dev):
+    rng = np.random.default_rng(7)
+    base, draws, zt, zw, win = _k2_inputs(rng, dev, (8, 4, 10, 50),
+                                          SIMULT_WINDOWS)
+    lam = torch.as_tensor(rng.uniform(0, 40, (8, 130)).astype(np.float32),
+                          device=dev)
+    want_hist = tof_hist_segments(base, draws, zt, zw, win)
+    seed = torch.zeros(2, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        counts = poisson(lam, seed, n_runs=4)
+        hist = tof_hist_segments(base, draws, zt, zw, win)
+    for words in ((1, 2), (3, 4)):
+        seed.copy_(torch.tensor(words, dtype=torch.int64))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(counts, poisson(lam, words, n_runs=4))
+        assert torch.equal(hist, want_hist)
 
 
 def test_weighted_hist_kernel_matches_plain(dev):

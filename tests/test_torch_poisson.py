@@ -8,7 +8,11 @@ package and vs exact distributions.
   and the inversion path against the exact pmf;
 * the Philox4x32-10 mirror against Random123's known-answer vectors (the
   CUDA generator is held to the same vectors on the card);
-* the stream contract: draws are a function of (seed, element index).
+* the stream contract: draws are a function of (seed, element index);
+* the wrapper's forms: the seed as a pair of ints or as a two-word
+  tensor, rates given once per walker with a run count, its refusals;
+* the forward's counts path draws every run from the walker's rates,
+  exactly as from the rates copied along the run axis.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +23,7 @@ from scipy.special import gammaln as sp_gammaln
 
 from mcmctoffitting_tpu.ops.pallas_poisson import _gammaln_stirling as j_stir
 from mcmctoffitting_tpu.ops.poisson import _ptrs_log_pmf as j_log_pmf
+from mcmctoffitting_tpu_torch.models import simult as tsimult
 from mcmctoffitting_tpu_torch.ops import poisson as tp
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import poisson
 
@@ -133,3 +138,90 @@ def test_seed_words_come_from_a_host_generator():
     assert len(set(words)) == 4
     again = torch.Generator().manual_seed(0)
     assert tp.seed_words(again) == words[0]
+
+
+def _mixed_rates(shape, seed=0):
+    """Rates from 0 through the branch boundary into the thousands."""
+    rng = np.random.default_rng(seed)
+    lam = np.exp(rng.uniform(np.log(1e-3), np.log(5e3), shape))
+    lam[rng.uniform(size=shape) < 0.2] = 0.0
+    return torch.as_tensor(lam.astype(np.float32))
+
+
+@pytest.mark.parametrize("words", [(9, 10), (0xFFFFFFFF, 0),
+                                   (0xDEADBEEF, 0x12345678)])
+def test_seed_tensor_equals_tuple_form(words):
+    lam = _mixed_rates((7, 129))
+    seed = torch.tensor(words, dtype=torch.int64)
+    want = tp.poisson_ptrs(lam, words)
+    np.testing.assert_array_equal(tp.poisson_ptrs(lam, seed), want)
+    np.testing.assert_array_equal(poisson(lam, seed), want)
+    np.testing.assert_array_equal(poisson(lam, words), want)
+    # only the low 32 bits of a word count, as for the ints
+    np.testing.assert_array_equal(poisson(lam, seed + (1 << 32)), want)
+
+
+@pytest.mark.parametrize("lead,n_runs,n_rates", [((16,), 4, 130),
+                                                 ((3, 5), 2, 66),
+                                                 ((1,), 1, 7),
+                                                 ((), 3, 33)])
+def test_rates_per_walker_equal_expanded_form(lead, n_runs, n_rates):
+    """Rates (..., C) with a run count draw as the rates copied to
+    (..., R, C): the counter of a draw is its output element's index."""
+    lam = _mixed_rates(lead + (n_rates,), seed=1)
+    expanded = lam[..., None, :].expand(lead + (n_runs, n_rates))
+    got = poisson(lam, (5, 6), n_runs=n_runs)
+    assert got.shape == lead + (n_runs, n_rates)
+    np.testing.assert_array_equal(
+        got, tp.poisson_ptrs(expanded.contiguous(), (5, 6)))
+    if n_runs > 1 and lam.numel() > 30:   # runs draw independently
+        assert not torch.equal(got[..., 0, :], got[..., 1, :])
+
+
+def test_wrapper_refusals():
+    lam = _mixed_rates((4, 10))
+    with pytest.raises(TypeError, match="float32"):
+        poisson(lam.double(), (1, 2))
+    with pytest.raises(TypeError, match="two int64 words"):
+        poisson(lam, torch.tensor([1, 2], dtype=torch.int32))
+    with pytest.raises(TypeError, match="two int64 words"):
+        poisson(lam, torch.tensor([1, 2, 3]))
+    with pytest.raises(ValueError, match="two 32-bit words"):
+        poisson(lam, (1, 2, 3))
+    with pytest.raises(ValueError, match="n_runs"):
+        poisson(lam, (1, 2), n_runs=0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        poisson(lam.to("meta"), (1, 2))
+    with pytest.raises(ValueError, match="seed on"):
+        poisson(lam, torch.tensor([1, 2], device="meta"))
+    assert poisson(torch.empty((0, 5)), (1, 2), n_runs=3).shape == (0, 3, 5)
+
+
+def test_counts_path_draws_each_run_from_the_walkers_rates():
+    """grid_and_mean on a fixed generator: the grids of the path that
+    hands K1 the rates once per walker equal, bit for bit, those of the
+    rates copied along the run axis and drawn with the same seed words."""
+    from mcmctoffitting_tpu_torch.models import forward as tforward
+    from mcmctoffitting_tpu_torch.ops.e0grid import (CountsRates,
+                                                     moments_from_counts)
+    spec = tsimult.default_spec(8000, sampling="counts", fine_grid=128)
+    fwd = tsimult.SimultFitProblem(spec, n_runs=4, device="cpu").forward
+    rng = np.random.default_rng(2)
+    truth = np.asarray(tsimult.GUESS_SHARED, np.float32)
+    params = torch.as_tensor(
+        truth * (1.0 + 0.01 * rng.standard_normal((6, 4))).astype(
+            np.float32))
+    grids, e0_means = fwd.grid_and_mean(params,
+                                        torch.Generator().manual_seed(11))
+    assert grids.shape[:2] == (6, 4) and e0_means.shape == (6, 4)
+
+    rates = fwd.counts_rates(params)
+    words = tp.seed_words(torch.Generator().manual_seed(11))
+    lam = rates.lam[:, None, :].expand(6, 4, -1).contiguous()
+    counts = tp.poisson_ptrs(lam, words)
+    per_run = CountsRates(*(t[:, None] for t in rates))
+    moments, want_means = moments_from_counts(fwd.e0grid, counts, per_run)
+    want = tforward._e0grid_contract(fwd.e0grid, moments)
+    np.testing.assert_array_equal(grids, want)
+    np.testing.assert_array_equal(e0_means, want_means)
+    assert not torch.equal(grids[:, 0], grids[:, 1])   # runs draw apart

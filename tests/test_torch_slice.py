@@ -79,7 +79,9 @@ def counts_are_rates(monkeypatch):
     """Both packages' Poisson stage returns its rates: the forward models
     become deterministic and comparable walker by walker."""
     monkeypatch.setattr(jpoisson, "poisson_auto", lambda key, lam: lam)
-    monkeypatch.setattr(tforward, "poisson", lambda lam, seed: lam)
+    monkeypatch.setattr(
+        tforward, "poisson", lambda lam, seed, n_runs:
+        lam[:, None].expand(-1, n_runs, -1))
 
 
 def test_parity_without_rint(jax_observed, counts_are_rates):
@@ -98,6 +100,39 @@ def test_parity_without_rint(jax_observed, counts_are_rates):
         np.testing.assert_allclose(spec_t[:, r, :win.n_bins], want,
                                    rtol=1e-5, atol=1e-5 * want.max())
         np.testing.assert_array_equal(spec_t[:, r, win.n_bins:], 0.0)
+    scale = sum(np.sum(np.abs(o * np.log(np.maximum(s, 1e-3))) + s, -1)
+                for o, s in zip(jax_observed, spec_j))
+    assert np.all(np.isfinite(lp_j)) and np.all(np.isfinite(lp_t))
+    assert np.all(np.abs(lp_t - lp_j) <= 1e-5 * scale), (lp_t, lp_j)
+
+
+def test_parity_with_injected_counts(jax_observed, monkeypatch):
+    """Both packages' Poisson stage returns the same counts, a non-linear
+    function of the rates with a pattern along the cells (smooth, so that a
+    last-bit difference of a rate moves no count by a whole draw, and
+    tending to the rate itself where the rate underflows and the
+    conditional moments are rounding noise), so the path from the draw on
+    is held: the port's draw takes the rates once per walker and returns
+    counts per run.  Tolerances of test_parity_without_rint."""
+    def counts(lam, cells):
+        return lam * (1.0 + 0.5 * ((cells % 3) - 1.0) * lam / (1.0 + lam))
+
+    monkeypatch.setattr(
+        jpoisson, "poisson_auto", lambda key, lam:
+        counts(lam, jnp.arange(lam.shape[-1])))
+    monkeypatch.setattr(
+        tforward, "poisson", lambda lam, seed, n_runs:
+        counts(lam, torch.arange(lam.shape[-1]))[:, None]
+        .expand(-1, n_runs, -1))
+    thetas = _thetas(4, seed=7)
+    lp_j, spec_j = _jax_logp_and_spectra(
+        _spec(jsimult, rint_draws=False), "poisson", jax_observed, thetas, 5)
+    lp_t, spec_t, windows = _port_logp_and_spectra(
+        _spec(tsimult, rint_draws=False), "poisson", jax_observed, thetas, 5)
+    for r, win in enumerate(windows):
+        want = spec_j[r]
+        np.testing.assert_allclose(spec_t[:, r, :win.n_bins], want,
+                                   rtol=1e-5, atol=1e-5 * want.max())
     scale = sum(np.sum(np.abs(o * np.log(np.maximum(s, 1e-3))) + s, -1)
                 for o, s in zip(jax_observed, spec_j))
     assert np.all(np.isfinite(lp_j)) and np.all(np.isfinite(lp_t))

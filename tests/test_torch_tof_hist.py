@@ -149,6 +149,56 @@ def test_wrapper_rejects_bad_arguments():
                           zt, zw, win)
 
 
+def test_wrapper_refusals_by_kind():
+    """Wrong dtype of any input, inputs on two devices, a window tensor
+    of another length, tables of two shapes: each refused with its own
+    error; a bin count of any size is served, not refused."""
+    base, draws, zt, zw = (torch.as_tensor(a) for a in
+                           _problem(6, WINDOWS, 7, 23, 5))
+    win = window_constants(WINDOWS, device="cpu")
+    with pytest.raises(TypeError, match="float32"):
+        tof_hist_segments(base, draws, zt.double(), zw, win)
+    with pytest.raises(TypeError, match="int32"):
+        tof_hist_segments(base, draws, zt, zw,
+                          win._replace(nb1=win.nb1.long()))
+    with pytest.raises(ValueError, match="one device"):
+        tof_hist_segments(base, draws.to("meta"), zt, zw, win)
+    with pytest.raises(ValueError, match="one device"):
+        tof_hist_segments(base, draws, zt, zw,
+                          win._replace(scale=win.scale.to("meta")))
+    with pytest.raises(ValueError, match="shapes"):
+        tof_hist_segments(base, draws, zt, zw[:, :-1].contiguous(), win)
+    with pytest.raises(ValueError, match="shapes"):
+        tof_hist_segments(base, draws, zt, zw,
+                          win._replace(hi=win.hi[:-1]))
+    with pytest.raises(ValueError, match="shapes"):
+        tof_hist_segments(base[0], draws[0], zt, zw, win)   # no run axis
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tof_hist_segments(*(t.to("meta") for t in (base, draws, zt, zw)),
+                          window_constants(WINDOWS, device="meta"))
+
+
+@pytest.mark.parametrize("n_bins", [1, 129, 20_000])
+def test_any_bin_count_is_served(n_bins):
+    """One bin, more than the TPU kernel's 128, more than the fast CUDA
+    kernel has shared memory for: against the f64 np.histogram oracle."""
+    windows = (TofWindow(130.0, 260.0, n_bins), TofWindow(175.0, 225.0, 50))
+    base, draws, zt, zw = _problem(7, windows, 7, 23, 5)
+    got = _plain(base, draws, zt, zw, windows)
+    assert got.shape == (2, max(n_bins, 50))
+    total = (draws[..., None] * zw).sum(axis=(-3, -2, -1)).max()
+    np.testing.assert_allclose(got, _oracle(base, draws, zt, zw, windows),
+                               rtol=1e-5, atol=1e-5 * total)
+
+
+def test_empty_walker_batch():
+    base, draws, zt, zw = (torch.as_tensor(a) for a in
+                           _problem(8, WINDOWS, 7, 23, 5, w_batch=2))
+    win = window_constants(WINDOWS, device="cpu")
+    got = tof_hist_segments(base[:0], draws[:0], zt, zw, win)
+    assert got.shape == (0, len(WINDOWS), 70)
+
+
 def test_window_constants_are_the_kernel_constants():
     """scale is float32(n_bins / (hi - lo)) exactly as the TPU kernel and
     the JAX histogram fix it (ops/pallas_tof.py:171-174)."""
