@@ -2,10 +2,14 @@
 """Smoke test of the PyTorch/CUDA port (mcmctoffitting_tpu_torch) on one
 NVIDIA GPU: builds the CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the forward model's shapes, times both beside
-their bounds, and drives the simultFit fits through the library's entry
-points at full width (256 walkers x 4 runs x 200k draws, DE move): the
-counts estimator (F = 512), and the mc estimator on the literal ODE path
-(transport='rk4') with xs_mode 'taylor' and 'exact'.
+their bounds, and drives the fits through the library's entry points at
+full width (256 walkers x 200k draws, DE move).  simultFit (4 runs): the
+counts estimator (F = 512), the mc estimator on the literal ODE path
+(transport='rk4') with xs_mode 'taylor' and 'exact', the default mc
+estimator on the stopping table (e0grid, F = 256) and the 'expected'
+estimator.  csi_oneBD (3 runs, Poisson background): the -hardcore counts
+fit (400 x 20 grid, F = 1024, bfloat16 A operator of 4096 x 8000) and the
+default mc fit (100 x 10 grid, F = 512).
 
     python3 chip_smoke.py
 
@@ -45,13 +49,26 @@ Phases (any failure raises; the exit code is then non-zero):
      initial energies, for 'taylor' and 'exact' (relative L1 < 1e-4);
      the full-width 'taylor' fit for both likelihoods (K2 and K4 must be
      launched), then a few steps of the 'exact' configuration (K2, K3);
-  9. the second cross-check of phase 6: torch.profiler's kernel durations
+  9. the default simultFit estimators: the GPU forward vs the CPU forward
+     on 8 walkers for mc on the table (e0grid, same initial energies) and
+     for 'expected', then a short fit of each (K2 must be launched);
+ 10. oneBD: K1 vs plain on the background's (128, 3, 25) rates (levels 0,
+     0.5, 10, 1000) and on the hardcore fit's (128) x 3 x 1026 cell rates;
+     K2 with one segment vs plain on the hardcore lattice (128, 3, 20,
+     400), vs the float64 sums, the same on a second call; their device
+     times beside their bounds; the GPU forward vs the CPU forward on 8
+     walkers for hardcore counts (float32 and bfloat16 A) and the default
+     mc; the full-width hardcore counts fit for both likelihoods (K1
+     launched twice and K2 once per log-prob evaluation); a short default
+     mc fit;
+ 11. the second cross-check of phase 6: torch.profiler's kernel durations
      of K1 and K2 beside the graph's (last, because a profiler that has
      run makes every later launch dearer for the host).
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,7 +78,7 @@ import numpy as np
 import torch
 
 from mcmctoffitting_tpu_torch import sampler
-from mcmctoffitting_tpu_torch.models import simult
+from mcmctoffitting_tpu_torch.models import onebd, simult
 from mcmctoffitting_tpu_torch.models.forward import exact_rows_per_chunk
 from mcmctoffitting_tpu_torch.ops import cuda_build, cuda_hist, cuda_transport
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
@@ -74,7 +91,11 @@ from mcmctoffitting_tpu_torch.utils import data_io, devtime
 N_WALKERS, N_RUNS, N_DRAWS = 256, 4, 200_000
 N_WARM, N_TIMED = 20, 200            # counts fit
 MC_WARM, MC_TIMED = 5, 20            # mc 'taylor' fit
-EXACT_WARM, EXACT_TIMED = 1, 3       # mc 'exact' configuration
+EXACT_WARM, EXACT_TIMED = 1, 2       # mc 'exact' configuration
+SHORT_WARM, SHORT_TIMED = 3, 10      # the default mc fits
+ONEBD_RUNS = 3
+ONEBD_WARM, ONEBD_TIMED = 20, 100    # oneBD hardcore counts fit
+BG_LEVELS = (0.0, 0.5, 10.0, 1000.0)
 LAMS = (0.5, 5.0, 10.0, 100.0, 1.0e4, 2.0e5)
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores; the bound counts logf and a division as one
@@ -193,7 +214,7 @@ def phase_poisson(dev, rates_w, n_runs):
     return err
 
 
-def phase_tof(dev, base, draws, forward):
+def phase_tof(dev, base, draws, forward, label="phase 3"):
     zt, zw, win = forward.zt, forward.zw, forward.win
     kern = tof_hist_segments(base, draws, zt, zw, win)
     plain = tof_hist_segments_plain(base, draws, zt, zw, win)
@@ -204,7 +225,8 @@ def phase_tof(dev, base, draws, forward):
     require(bool(torch.all(err <= 1e-6 * total)),
             "K2 kernel vs plain on the slice's lattice")
     again = tof_hist_segments(base, draws, zt, zw, win)
-    log(f"phase 3: TOF kernel vs plain on {tuple(base.shape)}: "
+    log(f"{label}: TOF kernel vs plain on {tuple(base.shape)} "
+        f"(K = {zt.shape[1]}): "
         f"max|diff|={err.max().item():g} "
         f"(max rel to row total {(err / total).max().item():.2e}); a second "
         f"call equal: {torch.equal(kern, again)}")
@@ -215,7 +237,7 @@ def phase_tof(dev, base, draws, forward):
     # drops of each of the row's samples
     exact = tof_hist_segments_plain(base, draws, zt, zw, win, torch.float64)
     off = (kern.double() - exact).abs()
-    log(f"phase 3: TOF kernel vs the float64 sums: max|diff|="
+    log(f"{label}: TOF kernel vs the float64 sums: max|diff|="
         f"{off.max().item():g} (max rel to the bin "
         f"{(off / exact.abs().clamp_min(1e-30)).max().item():.2e})")
     n_samples = base.shape[-2] * base.shape[-1] * zt.shape[1]
@@ -242,7 +264,7 @@ def phase_tof(dev, base, draws, forward):
         want[0, r, int(1.5 * win.scale[r].item())] += 32.0
     got = tof_hist_segments(e_base, e_draws, e_zt, e_zw, win)
     require(torch.equal(got, want), "K2 np.histogram edge cases")
-    log("phase 3: TOF kernel edge cases exact (v == hi, v == lo, outside, "
+    log(f"{label}: TOF kernel edge cases exact (v == hi, v == lo, outside, "
         "NaN, padding)")
     return err.max().item()
 
@@ -362,14 +384,32 @@ def phase_hist(dev, values, weights, bins):
     return max_err
 
 
-def fit(spec, likelihood, dev, truth, n_warm, n_timed, smi, label,
-        max_bad=0):
-    """Full-width DE fit through the entry points; returns walker-steps/s
-    and the acceptance."""
-    prob = simult.SimultFitProblem(spec, n_runs=N_RUNS,
+def simult_problem(spec, likelihood, dev):
+    return simult.SimultFitProblem(spec, n_runs=N_RUNS,
                                    likelihood=likelihood, device=dev)
+
+
+def onebd_problem(spec, likelihood, dev):
+    return onebd.OneBDProblem(spec, n_runs=ONEBD_RUNS, likelihood=likelihood,
+                              device=dev)
+
+
+def fit(spec, likelihood, dev, truth, n_warm, n_timed, smi, label,
+        max_bad=0, make_problem=simult_problem):
+    """Full-width DE fit through the entry points; returns walker-steps/s,
+    the acceptance, and the launch counts of the fit beside its number of
+    log-prob evaluations: every count is set to 0 once the data are
+    synthesised and read when the chain has run."""
+    prob = make_problem(spec, likelihood, dev)
     obs = data_io.synthesize_observed(9, prob, truth)
-    logp = prob.make_log_prob_fn(obs)
+    logp_fn = prob.make_log_prob_fn(obs)
+    evals = [0]
+
+    def logp(thetas, generator):
+        evals[0] += 1
+        return logp_fn(thetas, generator)
+
+    reset_counts()
     gen = torch.Generator(dev).manual_seed(1)
     walkers = prob.initial_walkers_from_observed(gen, N_WALKERS, obs)
     state = sampler.init_state(walkers, logp, generator=gen,
@@ -397,7 +437,14 @@ def fit(spec, likelihood, dev, truth, n_warm, n_timed, smi, label,
         f"{N_WALKERS} walkers in {dt:.3f} s -> {rate:.1f} walker-steps/s "
         f"warm; acceptance {acc:.3f}; final median logp "
         f"{chain.log_probs[-1].median().item():.6g}")
-    return rate, acc
+    used = read_counts()
+    used["log_prob_evaluations"] = evals[0]
+    return rate, acc, used
+
+
+def add_counts(*used):
+    """Launch counts of several fits, summed."""
+    return {name: sum(u[name] for u in used) for name in used[0]}
 
 
 def reset_counts():
@@ -414,18 +461,262 @@ def read_counts():
 
 
 def gpu_vs_cpu_mc(problem, cpu_problem, thetas, gen):
-    """Spectra of the GPU and CPU forwards from the same initial energies:
-    max relative L1 over (walker, run)."""
+    """Spectra of the GPU and CPU forwards from the same initial energies
+    (and, with a background, the same background seed): max relative L1
+    over (walker, run)."""
     spectra = []
-    e0 = problem.forward.sample_beam_energies(thetas[:, :4], gen)
+    params, _, _ = problem.split_theta(thetas)
+    e0 = problem.forward.sample_beam_energies(params, gen)
     for prob, e in ((problem, e0), (cpu_problem, e0.cpu())):
-        fwd, t = prob.forward, thetas.to(e.device)
+        fwd = prob.forward
+        _, scales, bg_levels = prob.split_theta(thetas.to(e.device))
         grid = fwd.energy_weight_grid(e)
-        spectra.append(fwd.spectra(*fwd.lattice(grid, e.mean(-1)),
-                                   t[:, 4:4 + N_RUNS]).cpu())
+        background = (None if bg_levels is None else fwd.background(
+            bg_levels, torch.Generator().manual_seed(12)))
+        spectra.append(fwd.spectra(*fwd.lattice(grid, e.mean(-1)), scales,
+                                   background).cpu())
     gpu, cpu = spectra
     require(bool(torch.all(torch.isfinite(gpu))), "finite mc spectra")
     return ((gpu - cpu).abs().sum(-1) / cpu.abs().sum(-1)).max().item()
+
+
+def gpu_vs_cpu_seeded(problem, cpu_problem, thetas, seed):
+    """Spectra of the GPU and CPU forwards with the same host seed (the
+    counts and the background draw from the same Philox stream on both;
+    'expected' draws nothing): max relative L1 over (walker, run)."""
+    gpu = problem.run_spectra(thetas,
+                              torch.Generator().manual_seed(seed)).cpu()
+    cpu = cpu_problem.run_spectra(thetas.cpu(),
+                                  torch.Generator().manual_seed(seed))
+    require(bool(torch.all(torch.isfinite(gpu))), "finite spectra")
+    return ((gpu - cpu).abs().sum(-1) / cpu.abs().sum(-1)).max().item()
+
+
+def phase_simult_defaults(dev, smi, truth, p0, rate, acc, launches):
+    """Phase 9: simultFit's default mc estimator (table, e0grid, F = 256)
+    and the 'expected' estimator: GPU vs CPU on 8 walkers, a short fit."""
+    spec_mc = simult.default_spec(N_DRAWS)
+    spec_ev = simult.default_spec(N_DRAWS, sampling="expected")
+    require((spec_mc.sampling, spec_mc.transport, spec_mc.xs_mode,
+             spec_mc.e0_grid_fine) == ("mc", "table", "e0grid", 256),
+            "simult.default_spec() is mc on the table through the e0grid")
+    small = p0[:8]
+    rel = gpu_vs_cpu_mc(simult_problem(spec_mc, "poisson", dev),
+                        simult_problem(spec_mc, "poisson", "cpu"), small,
+                        torch.Generator().manual_seed(6))
+    log(f"phase 9a: simultFit mc default (table, e0grid) GPU vs CPU "
+        f"spectra on 8 walkers x {N_RUNS} runs, same initial energies: max "
+        f"rel L1 {rel:.2e}")
+    require(rel < 1e-4, "mc default GPU forward vs CPU forward")
+    rel = gpu_vs_cpu_seeded(simult_problem(spec_ev, "poisson", dev),
+                            simult_problem(spec_ev, "poisson", "cpu"),
+                            small, 4)
+    log(f"phase 9a: simultFit 'expected' GPU vs CPU spectra on 8 walkers x "
+        f"{N_RUNS} runs: max rel L1 {rel:.2e}")
+    require(rel < 1e-4, "'expected' GPU forward vs CPU forward")
+    for name, spec, steps in (("mc_default", spec_mc,
+                               (SHORT_WARM, SHORT_TIMED)),
+                              ("expected", spec_ev, (N_WARM, N_TIMED))):
+        # as on the counts path, a grid cell of the A contraction can be
+        # negative and round to -1 draws: the faithful likelihood of such
+        # a walker is -inf (at most 2% of the starts)
+        key = f"{name}_reference"
+        rate[key], acc[key], launches[f"simult_{name}"] = fit(
+            spec, "reference", dev, truth, *steps, smi,
+            f"phase 9b (simultFit, {name})", max_bad=N_WALKERS // 50)
+        log(f"phase 9b: launches during the simultFit {name} fit: "
+            f"{launches[f'simult_{name}']}")
+        require(launches[f"simult_{name}"]["tof_hist"] > 0,
+                f"K2 launched on the simultFit {name} path")
+        require(launches[f"simult_{name}"]["poisson"] == 0,
+                f"K1 not launched on the simultFit {name} path")
+
+
+def phase_onebd(dev, smi, rate, acc, launches):
+    """Phase 10: the csi_oneBD fits.  Returns what the kernels line says
+    of K1 and K2 at the oneBD shapes."""
+    half = N_WALKERS // 2
+    truth = data_io.ONEBD_TRUTH
+    t0 = time.perf_counter()
+    spec_hc = onebd.default_spec(N_DRAWS, hardcore=True, sampling="counts")
+    build_s = time.perf_counter() - t0
+    tab = spec_hc.e0_grid_table
+    require((spec_hc.ed_binning.n, spec_hc.x_binning.n, spec_hc.e0_grid_fine,
+             spec_hc.a_dtype) == (400, 20, 1024, "bfloat16")
+            and tab.a_matrix.shape == (4096, 8000),
+            "the hardcore counts preset: 400 x 20 grid, F = 1024, bf16 A")
+    log(f"phase 10: the hardcore A operator {tab.a_matrix.shape} "
+        f"({tab.a_matrix.nbytes / 1e6:.0f} MB float32) built on the host in "
+        f"{build_s:.1f} s")
+    problem = onebd_problem(spec_hc, "poisson", dev)
+    forward = problem.forward
+    observed = data_io.synthesize_observed(9, problem, truth)
+    p0 = problem.initial_walkers_from_observed(
+        torch.Generator(dev).manual_seed(1), N_WALKERS, observed)
+    params, scales, bg = problem.split_theta(p0[:half])
+
+    # K1 on the background's rates: (128, 3, 25), each row 25 equal rates
+    levels = torch.tensor(BG_LEVELS, device=dev)[
+        torch.arange(half * ONEBD_RUNS, device=dev) % len(BG_LEVELS)]
+    lam_bg = levels.reshape(half, ONEBD_RUNS, 1).expand(
+        -1, -1, forward.win.n_pad).contiguous()
+    kern = poisson(lam_bg, (31, 32))
+    plain = plain_poisson.poisson_ptrs(lam_bg, (31, 32))
+    same = (kern == plain).double().mean().item()
+    k1_bg_err = (kern - plain).abs().max().item()
+    require(bool(torch.all(kern[lam_bg == 0] == 0)), "K1: rate 0 draws 0")
+    require(same == 1.0 and k1_bg_err == 0,
+            "K1 == plain on the background's rates, every draw")
+    for level in BG_LEVELS[1:]:
+        pick = lam_bg == level
+        z = poisson_z(kern[pick], lam_bg[pick])
+        log(f"phase 10a: K1 on background rates {tuple(lam_bg.shape)}: "
+            f"level {level:g}: z=({z[0]:+.2f}, {z[1]:+.2f})")
+        require(max(map(abs, z)) < 5, f"K1 z-scores at level {level}")
+    log(f"phase 10a: K1 vs plain on the background's rates: equal="
+        f"{same:.6f}, max|diff|={k1_bg_err:g}, rate 0 -> 0")
+
+    # K1 on the hardcore cell rates, (128) x 3 x 1026
+    rates = forward.counts_rates(params)
+    require(rates.lam.shape == (half, 1026), "hardcore rates (128, 1026)")
+    lam_c = rates.lam[:, None].expand(-1, ONEBD_RUNS, -1).contiguous()
+    kern = poisson(rates.lam, (33, 34), n_runs=ONEBD_RUNS)
+    plain = plain_poisson.poisson_ptrs(lam_c, (33, 34))
+    same = (kern == plain).double().mean().item()
+    k1_cells_err = (kern - plain).abs().max().item()
+    zk = poisson_z(kern, lam_c)
+    log(f"phase 10a: K1 vs plain on the hardcore cell rates "
+        f"{tuple(lam_c.shape)}: z=({zk[0]:+.2f}, {zk[1]:+.2f}) "
+        f"equal={same:.6f} max|diff|={k1_cells_err:g}")
+    require(max(map(abs, zk)) < 5 and same == 1.0 and k1_cells_err == 0,
+            "K1 == plain on the hardcore cell rates, every draw")
+
+    # K2 with one segment on the hardcore lattice (128, 3, 20, 400)
+    grids, e0_means = forward.grid_and_mean(params,
+                                            torch.Generator().manual_seed(3))
+    base, draws = forward.lattice(grids, e0_means)
+    require(base.shape == (half, ONEBD_RUNS, 20, 400)
+            and forward.zt.shape == (400, 1), "hardcore lattice, K = 1")
+    k2_err = phase_tof(dev, base, draws, forward, "phase 10b")
+
+    def k1_bg_call():
+        return poisson(lam_bg, (5, 6))
+
+    def k1_cells_call():
+        return poisson(rates.lam, (5, 6), n_runs=ONEBD_RUNS)
+
+    def k2_call():
+        return tof_hist_segments(base, draws, forward.zt, forward.zw,
+                                 forward.win)
+
+    floor_ms = devtime.launch_floor_ms(dev)
+    ms = devtime.graphs_in_turns({"k1_bg": k1_bg_call,
+                                  "k1_cells": k1_cells_call,
+                                  "k2": k2_call})
+    win = forward.win
+    vals = base[..., None] + forward.zt
+    k2_in = ((vals >= win.lo[:, None, None, None])
+             & (vals <= win.hi[:, None, None, None])).sum().item()
+    del vals
+    bounds = {
+        "k1_bg": bound(8 * lam_bg.numel(), 130 * lam_bg.numel()),
+        "k1_cells": bound(4 * (rates.lam.numel() + lam_c.numel()),
+                          130 * lam_c.numel()),
+        "k2": bound(4 * (2 * base.numel() + 2 * forward.zt.numel()
+                         + half * ONEBD_RUNS * win.n_pad),
+                    4 * base.numel() + 5 * k2_in),
+    }
+    plain_ms = {
+        "k1_bg": cuda_ms(lambda: plain_poisson.poisson_ptrs(lam_bg, (5, 6)),
+                         reps=10),
+        "k1_cells": cuda_ms(lambda: plain_poisson.poisson_ptrs(lam_c, (5, 6)),
+                            reps=10),
+        "k2": cuda_ms(lambda: tof_hist_segments_plain(
+            base, draws, forward.zt, forward.zw, win)),
+    }
+    library_ms = {"k1_bg": devtime.graph_ms(lambda: torch.poisson(lam_bg)),
+                  "k1_cells": devtime.graph_ms(lambda: torch.poisson(lam_c)),
+                  "k2": None}
+    shapes = {"k1_bg": tuple(lam_bg.shape), "k1_cells": tuple(lam_c.shape),
+              "k2": tuple(base.shape)}
+    for name in ms:
+        lib = library_ms[name]
+        log(f"phase 10c ({smi}): {name} {shapes[name]}: kernel "
+            f"{ms[name]:.5f} ms, plain {plain_ms[name]:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.5f} ms'}, bound "
+            f"{bounds[name][0]:.5f} ms ({bounds[name][1]}), launch floor "
+            f"{floor_ms:.5f} ms")
+    log(f"phase 10c: K2 in-range share {k2_in / base.numel():.4f}")
+
+    # GPU vs CPU forwards on 8 walkers at full width
+    small = p0[:8]
+    spec_f32 = dataclasses.replace(spec_hc, a_dtype="float32")
+    for name, sp in (("bfloat16 A", spec_hc), ("float32 A", spec_f32)):
+        rel = gpu_vs_cpu_seeded(onebd_problem(sp, "poisson", dev),
+                                onebd_problem(sp, "poisson", "cpu"), small, 4)
+        log(f"phase 10d: oneBD hardcore counts ({name}) GPU vs CPU spectra "
+            f"on 8 walkers x {ONEBD_RUNS} runs: max rel L1 {rel:.2e}")
+        require(rel < 1e-3, f"oneBD hardcore counts ({name}) GPU vs CPU")
+    spec_mc = onebd.default_spec(N_DRAWS)
+    require((spec_mc.ed_binning.n, spec_mc.x_binning.n, spec_mc.e0_grid_fine,
+             spec_mc.sampling) == (100, 10, 512, "mc"),
+            "the default oneBD preset: mc, 100 x 10 grid, F = 512")
+    mc_gpu = onebd_problem(spec_mc, "poisson", dev)
+    obs_mc = data_io.synthesize_observed(9, mc_gpu, truth)
+    p0_mc = mc_gpu.initial_walkers_from_observed(
+        torch.Generator(dev).manual_seed(1), 8, obs_mc)
+    rel = gpu_vs_cpu_mc(mc_gpu, onebd_problem(spec_mc, "poisson", "cpu"),
+                        p0_mc, torch.Generator().manual_seed(6))
+    log(f"phase 10d: oneBD mc default GPU vs CPU spectra on 8 walkers x "
+        f"{ONEBD_RUNS} runs, same initial energies: max rel L1 {rel:.2e}")
+    require(rel < 1e-4, "oneBD mc default GPU forward vs CPU forward")
+    del mc_gpu, problem, forward
+
+    # the slice's path at full width: the hardcore counts fit
+    used = {}
+    for likelihood in ("reference", "poisson"):
+        key = f"onebd_hardcore_counts_{likelihood}"
+        rate[key], acc[key], used[likelihood] = fit(
+            spec_hc, likelihood, dev, truth, ONEBD_WARM, ONEBD_TIMED, smi,
+            "phase 10e (oneBD, hardcore counts)",
+            max_bad=0 if likelihood == "poisson" else N_WALKERS // 50,
+            make_problem=onebd_problem)
+        n_evals = used[likelihood]["log_prob_evaluations"]
+        log(f"phase 10e: launches during the {likelihood} fit: "
+            f"{used[likelihood]}")
+        require(used[likelihood]["poisson"] == 2 * n_evals
+                and used[likelihood]["tof_hist"] == n_evals,
+                "K1 launched twice and K2 once per log-prob evaluation")
+    launches["onebd_hardcore_counts"] = add_counts(*used.values())
+
+    key = "onebd_mc_default_reference"
+    rate[key], acc[key], launches["onebd_mc_default"] = fit(
+        spec_mc, "reference", dev, truth, SHORT_WARM, SHORT_TIMED, smi,
+        "phase 10f (oneBD, mc default)", max_bad=N_WALKERS // 50,
+        make_problem=onebd_problem)
+    log(f"phase 10f: launches during the oneBD mc fit: "
+        f"{launches['onebd_mc_default']}")
+    n_evals = launches["onebd_mc_default"]["log_prob_evaluations"]
+    require(launches["onebd_mc_default"]["poisson"] == n_evals
+            and launches["onebd_mc_default"]["tof_hist"] == n_evals,
+            "K1 (background) and K2 launched once per evaluation")
+
+    return {
+        "a_build_seconds": build_s,
+        "poisson": [
+            {"shape": list(shapes[n]), "what": what, "ms": ms[n],
+             "plain_ms": plain_ms[n], "library_ms": library_ms[n],
+             "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+             "launch_floor_ms": floor_ms, "max_abs_err": err}
+            for n, what, err in (("k1_bg", "background", k1_bg_err),
+                                 ("k1_cells", "hardcore cell counts",
+                                  k1_cells_err))],
+        "tof_hist": [
+            {"shape": list(shapes["k2"]), "what": "hardcore lattice, K = 1",
+             "ms": ms["k2"], "plain_ms": plain_ms["k2"], "library_ms": None,
+             "bound_ms": bounds["k2"][0], "bound_by": bounds["k2"][1],
+             "launch_floor_ms": floor_ms, "max_abs_err": k2_err}],
+    }
 
 
 def main():
@@ -641,15 +932,16 @@ def main():
 
     rate, acc = {}, {}
     launches = {}
-    reset_counts()
+    used = {}
     for likelihood in ("reference", "poisson"):
         # the faithful likelihood is -inf where a Poisson-drawn grid cell
         # rounds to -1 draws and leaves a negative model bin (floor ->
         # gammaln(0)); the JAX package does the same (ROADMAP Queue 3)
-        rate[f"counts_{likelihood}"], acc[f"counts_{likelihood}"] = fit(
+        (rate[f"counts_{likelihood}"], acc[f"counts_{likelihood}"],
+         used[likelihood]) = fit(
             spec, likelihood, dev, truth, N_WARM, N_TIMED, smi, "phase 7b",
             max_bad=0 if likelihood == "poisson" else N_WALKERS // 50)
-    launches["counts"] = read_counts()
+    launches["counts"] = add_counts(*used.values())
     log(f"phase 7b: launches during the counts fits: {launches['counts']}")
     require(launches["counts"]["poisson"] > 0
             and launches["counts"]["tof_hist"] > 0,
@@ -666,30 +958,34 @@ def main():
             f"{N_RUNS} runs, same initial energies: max rel L1 {rel:.2e}")
         require(rel < 1e-4, f"mc '{name}' GPU forward vs CPU forward")
 
-    reset_counts()
     for likelihood in ("reference", "poisson"):
-        rate[f"mc_taylor_{likelihood}"], acc[f"mc_taylor_{likelihood}"] = \
-            fit(spec_mc, likelihood, dev, truth, MC_WARM, MC_TIMED, smi,
-                "phase 8b (mc, taylor)")
-    launches["mc_taylor"] = read_counts()
+        (rate[f"mc_taylor_{likelihood}"], acc[f"mc_taylor_{likelihood}"],
+         used[likelihood]) = fit(spec_mc, likelihood, dev, truth, MC_WARM,
+                                 MC_TIMED, smi, "phase 8b (mc, taylor)")
+    launches["mc_taylor"] = add_counts(*used.values())
     log(f"phase 8b: launches during the mc 'taylor' fits: "
         f"{launches['mc_taylor']}")
     require(launches["mc_taylor"]["transport_moments"] > 0
             and launches["mc_taylor"]["tof_hist"] > 0,
             "K4 and K2 launched on the mc 'taylor' path")
 
-    reset_counts()
-    rate["mc_exact_poisson"], acc["mc_exact_poisson"] = fit(
+    (rate["mc_exact_poisson"], acc["mc_exact_poisson"],
+     launches["mc_exact"]) = fit(
         spec_ex, "poisson", dev, truth, EXACT_WARM, EXACT_TIMED, smi,
         "phase 8c (mc, exact)")
-    launches["mc_exact"] = read_counts()
     log(f"phase 8c: launches during the mc 'exact' fit: "
         f"{launches['mc_exact']}")
     require(launches["mc_exact"]["weighted_hist"] > 0
             and launches["mc_exact"]["tof_hist"] > 0,
             "K3 and K2 launched on the mc 'exact' path")
 
-    # phase 9: the second cross-check of phase 6's device times, the kernel
+    # phases 9-10: the default estimators of simultFit, then oneBD
+    torch.cuda.empty_cache()
+    phase_simult_defaults(dev, smi, truth, p0, rate, acc, launches)
+    torch.cuda.empty_cache()
+    at_onebd = phase_onebd(dev, smi, rate, acc, launches)
+
+    # phase 11: the second cross-check of phase 6's device times, the kernel
     # durations torch.profiler reports for eager calls.  It comes last: once
     # the profiler has run in a process, every later launch costs the host
     # more, which the host-bound counts fit would show (~2 ms per step).
@@ -700,7 +996,7 @@ def main():
             lambda: torch.poisson(lam_h), "poisson"),
         "empty": devtime.profiler_kernel_ms(
             lambda: devtime.empty_launch(dev), "empty_kernel")}
-    log(f"phase 9 ({smi}): torch.profiler's kernel durations: K1 "
+    log(f"phase 11 ({smi}): torch.profiler's kernel durations: K1 "
         f"{profiled['poisson']:.5f}, K2 {profiled['tof_hist']:.5f}, "
         f"torch.poisson {profiled['torch.poisson']:.5f}, empty kernel "
         f"{profiled['empty']:.5f} ms")
@@ -712,7 +1008,7 @@ def main():
         # profiler's durations depend on its tracing being available
         ratio = times[name][0] / profiled[name]
         agree = 0.8 <= ratio <= 1.2
-        log(f"phase 9: {name}: graph {times[name][0]:.5f} ms / profiler "
+        log(f"phase 11: {name}: graph {times[name][0]:.5f} ms / profiler "
             f"{profiled[name]:.5f} ms = {ratio:.3f}: "
             + ("the two agree" if agree else
                "more than 20% apart, the graph's time is reported"))
@@ -741,9 +1037,15 @@ def main():
             "issue_floor_ms": issue_floor.get(name),
             "enqueue_us": enqueue[name], "launch_floor_ms": floor_ms,
             "profiler_ms": profiled.get(name),
-            "single_call_ms": single.get(name)})
+            "single_call_ms": single.get(name),
+            # K1 and K2 at the oneBD shapes (phase 10), each with its own
+            # error, times and bound; their launches on that path
+            "at_onebd_shapes": at_onebd.get(name),
+            "launches_onebd_hardcore_counts":
+                launches["onebd_hardcore_counts"][name]})
     print(json.dumps({"kernels": kernels, "walker_steps_per_s": rate,
-                      "acceptance": acc, "launches_by_path": launches}))
+                      "acceptance": acc, "launches_by_path": launches,
+                      "onebd_a_build_seconds": at_onebd["a_build_seconds"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""Physical constants and the simultFit experiment geometry.
+"""Physical constants and the simultFit and oneBD experiment geometries.
 
 The port's own copy of what it uses from ``mcmctoffitting_tpu/constants.py``
 (values carried over verbatim; ``tests/test_torch_import.py`` holds them
@@ -88,6 +88,18 @@ TUNL_SSA_CSI = CellGeometry(
     delta2=52.39,
 )
 
+# "one-BD" CsI QF run at TUNL SSA (the close standoff was re-measured)
+TUNL_SSA_CSI_ONEBD = CellGeometry(
+    cell_to_zero=518.055,
+    cell_length=2.86,
+    zero_deg_length=3.81,
+    tip_to_colli=148.4,
+    colli_to_zero=233.8,
+    delta1=412.3 - 351.3,
+    delta2=444.5 - 412.3,
+    standoff_close_override=351.3,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class TofWindow:
@@ -115,7 +127,34 @@ class TofWindows:
         return getattr(self, name)
 
 
+def _onebd_window(lo: float, hi: float) -> TofWindow:
+    # 4 ns bins: nBins = int((max - min) / 4)
+    return TofWindow(lo, hi, int((hi - lo) / 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class TofWindowsOneBD:
+    """CsI[Na] one-BD windows."""
+
+    close: TofWindow = _onebd_window(80.0, 180.0)
+    mid: TofWindow = _onebd_window(100.0, 200.0)
+    far: TofWindow = _onebd_window(120.0, 220.0)
+
+    def __getitem__(self, name: str) -> TofWindow:
+        return getattr(self, name)
+
+
+@dataclasses.dataclass(frozen=True)
+class OneBDExperimentConsts:
+    """one-BD campaign constants."""
+
+    beam_reference_energy: float = 2490.0  # keV
+    gas_cell_attenuation_length: float = 20.0  # cm (~10% flux drop over cell)
+
+
 physics = Physics()
 masses = Masses()
 q_values = QValues()
 tof_windows = TofWindows()
+tof_windows_onebd = TofWindowsOneBD()
+onebd_consts = OneBDExperimentConsts()

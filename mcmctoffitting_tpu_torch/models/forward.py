@@ -1,10 +1,10 @@
-"""The batched TOF forward model: the counts and mc estimators.
+"""The batched TOF forward model: the mc, counts and expected estimators.
 
 Port of ``mcmctoffitting_tpu/models/forward.py``: ``grid_and_mean`` for
-``sampling='counts'`` (``_e0grid_contract``) and for ``sampling='mc'`` on
-the literal ODE path (``transport='rk4'``: ``sample_beam_energies``,
-``energy_weight_grid`` with ``xs_mode`` 'taylor' or 'exact'), then
-``cell_tof_lattice``, ``_zero_degree_spread``, the segments TOF stage and
+the three ``sampling`` modes, ``energy_weight_grid`` for every pair of
+``transport`` ('rk4', 'table') and ``xs_mode`` ('e0grid', 'taylor',
+'exact') the JAX package runs, the cell attenuation, ``cell_tof_lattice``,
+both zero-degree stages ('segments', 'expo'), the per-run background and
 ``tof_spectra_multi``.  The JAX package evaluates one walker under
 ``vmap``; here every stage takes the whole batch, walkers then runs,
 ``(W, R, ...)``.  The grid stage, by estimator:
@@ -13,61 +13,72 @@ the literal ODE path (``transport='rk4'``: ``sample_beam_energies``,
     (``ops/e0grid``); one Poisson launch for all (W, R, F+2) rates
     (kernel K1); counts -> fine-cell moments -> (M, Be) grid by one
     float32 matmul against the static A operator.
+  expected: the closed-form fine-cell moments themselves, contracted with
+    A: no draw, one grid and one e0 mean shared by every run.
   mc: N initial energies per (walker, run), drawn on the device
-    (``ops/pdfs``); then for 'taylor' the fused RK4 transport + moment
-    histograms (kernel K4) contracted with the cross section's Taylor
-    coefficients at the eD bin centres, and for 'exact' the RK4 transport,
-    per-sample cross sections and a weighted histogram per (walker, run,
-    x) (kernel K3).
+    (``ops/pdfs``); then by ``xs_mode``: 'e0grid', the per-sample
+    fine-cell moments (``ops/e0grid.fine_cell_moments``) contracted with
+    A; 'taylor', the moment histograms of the transported energies
+    (kernel K4 on 'rk4', fused with the transport; the table lookup and
+    the plain moment channels on 'table') contracted with the cross
+    section's Taylor coefficients at the eD bin centres; 'exact', the
+    transport (RK4 or table lookup), per-sample cross sections and a
+    weighted histogram per (walker, run, x) (kernel K3).
 
-Then, for both: normalise, scale to ``n_samples`` draws, ``rint``; the TOF
-lattice of every (x, eD) cell, spread over the zero-degree segments and
-histogrammed into each run's window (kernel K2); density normalisation,
-the exGaussian timing convolution, run scale.
+Then, for all: the cell attenuation (oneBD), normalise, scale to
+``n_samples`` draws, ``rint``; the TOF lattice of every (x, eD) cell,
+histogrammed into each run's window (kernel K2: spread over the ten
+zero-degree segments, or as it is, one segment, for 'expo'); density
+normalisation, for 'expo' the causal exponential kernel and the padding
+bins re-zeroed, the beam-timing convolution, run scale, and the
+background (its expectation or one Poisson draw per bin, kernel K1) on
+the real bins.
 
 :class:`TofForward` holds the static tables as buffers on one device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from ..config import Binning
+from ..config import Binning, cell_attenuation_coeffs
 from ..constants import CellGeometry, masses
 from ..ops.cuda_hist import weighted_histogram
 from ..ops.cuda_poisson import poisson
 from ..ops.cuda_tof import tof_hist_segments
-from ..ops.cuda_transport import MomentBins, transport_moments
-from ..ops.e0grid import (CountsRates, E0Grid, E0GridTable, counts_lambdas,
-                          expected_e0_mean, moments_from_counts)
+from ..ops.cuda_transport import (MomentBins, energy_moments,
+                                  transport_moments)
+from ..ops.e0grid import (CountsRates, E0Grid, E0GridTable, contract,
+                          counts_lambdas, expected_e0_mean, expected_moments,
+                          fine_cell_moments, moments_from_counts)
 from ..ops.histogram import WindowConstants, window_constants
 from ..ops.interp import UniformCubicSpline1D, eval_uniform_spline
 from ..ops.kinematics import dd_neutron_energy_np, tof, tof_np
 from ..ops.pdfs import beam_energies_from_uniforms, draw_beam_uniforms
 from ..ops.poisson import seed_words
 from ..ops.stopping import (BetheStopping, StoppingTable,
-                            bethe_closed_form_constants, rk4_constants,
-                            rk4_transport)
-from ..ops.timing import (ExGaussianTiming, ZeroDegreeTimingSpread,
-                          apply_same_matrix, same_conv_matrix)
+                            bethe_closed_form_constants, eval_stopped,
+                            rk4_constants, rk4_transport)
+from ..ops.timing import (ExGaussianTiming, GaussianTiming,
+                          ZeroDegreeTimingSpread, apply_same_matrix,
+                          causal_conv_matrix, same_conv_matrix,
+                          zero_degree_expo_kernel)
 from ..ops.xs import ddn_xs_uniform
 
 # where each value the port does not run yet arrives (ROADMAP.md Queue 1)
 _NOT_YET = {
-    ("sampling", "expected"): "slice 2",
-    ("a_dtype", "bfloat16"): "slice 3",
-    ("cell_attenuation", True): "slice 3",
-    ("zero_degree", "expo"): "slice 3",
     ("zero_degree", "none"): "slice 5",
 }
 _SUPPORTED = {
-    "sampling": ("counts", "mc"), "xs_mode": ("e0grid", "taylor", "exact"),
+    "sampling": ("counts", "mc", "expected"),
+    "xs_mode": ("e0grid", "taylor", "exact"),
     "transport": ("table", "rk4"),
-    "a_dtype": ("float32",), "cell_attenuation": (False,),
-    "zero_degree": ("segments",), "moment_closure": ("exact", "cell"),
+    "a_dtype": ("float32", "bfloat16"), "cell_attenuation": (False, True),
+    "zero_degree": ("segments", "expo"), "bg_mode": ("poisson", "expected"),
+    "moment_closure": ("exact", "cell"),
     "e0_mean_mode": ("sample", "expected"),
 }
 # (rows x M x samples) elements transported at once on the 'exact' path
@@ -114,38 +125,48 @@ class ForwardSpec:
     geometry: CellGeometry
     ed_binning: Binning
     x_binning: Binning
-    # the medium of the RK4 transport (the mc path)
+    # the medium of the RK4 transport (mc with transport='rk4')
     stopping: Optional[BetheStopping] = None
     # cross section: weights of 'exact', Taylor coefficients of 'taylor'
     xs: UniformCubicSpline1D = ddn_xs_uniform
     # 'rk4': per-sample RK4 transport (the reference's ODE path);
-    # 'table': the stopping-table surrogate (read through the e0grid)
+    # 'table': the stopping-table surrogate, looked up per sample ('taylor',
+    # 'exact') or read through the e0grid operator
     transport: str = "rk4"
     stopping_table: Optional[StoppingTable] = None
     rk4_substeps: int = 4
-    beam_timing: ExGaussianTiming = ExGaussianTiming()
-    # zero-degree detector transit: 'segments' (10-segment spread)
+    beam_timing: Union[ExGaussianTiming, GaussianTiming] = ExGaussianTiming()
+    # zero-degree detector transit: 'segments' (10-segment spread,
+    # simultFit) or 'expo' (7-tap exponential kernel, oneBD)
     zero_degree: str = "segments"
+    # multiply the grid's x slices by the exp(-x / 20 cm) beam attenuation
     cell_attenuation: bool = False
+    # per-run background: 'poisson' draws fresh counts per evaluation (the
+    # reference), 'expected' adds the level itself
+    bg_mode: str = "poisson"
     n_samples: int = 200_000
     # round the normalised (x, eD) grid to integer draw counts
     rint_draws: bool = True
     # -1: draws conditioned on e0 > 0 (the reference's redraw loop);
     # 0: no conditioning (one untruncated draw)
     n_redraw_rounds: int = -1
-    # mc: 'taylor' (moments x Taylor coefficients) or 'exact' (per-sample
-    # cross sections); counts: 'e0grid'
+    # mc: 'e0grid' (fine-cell moments x the A operator; transport='table'),
+    # 'taylor' (moments x Taylor coefficients) or 'exact' (per-sample cross
+    # sections); counts and expected: 'e0grid'
     xs_mode: str = "taylor"
     e0_grid_table: Optional[E0GridTable] = None
     e0_grid_fine: int = 1024
     # 'mc': N draws per eval (the reference's estimator); 'counts':
-    # Poissonized Rao-Blackwell MC over the fine e0 cells
+    # Poissonized Rao-Blackwell MC over the fine e0 cells; 'expected': the
+    # closed-form moments, no draw (the N -> infinity limit)
     sampling: str = "mc"
     # which e0 mean feeds the TOF lattice: the per-eval 'sample' mean or
     # the closed-form 'expected' one
     e0_mean_mode: str = "sample"
-    # within-cell moment closure of the counts estimator: 'exact' or 'cell'
+    # within-cell moment closure of the counts and expected estimators:
+    # 'exact' or 'cell'
     moment_closure: str = "exact"
+    # 'bfloat16' rounds the A operator (not the moments) to bfloat16
     a_dtype: str = "float32"
 
     def __post_init__(self):
@@ -158,22 +179,17 @@ class ForwardSpec:
                                  _NOT_YET[(field, value)])
             raise ValueError(f"unknown ForwardSpec.{field}={value!r} "
                              f"(expected one of {allowed})")
-        if self.sampling == "counts":
-            if self.xs_mode != "e0grid":
-                raise ValueError("sampling='counts' requires "
-                                 "xs_mode='e0grid'")
-            if self.transport != "table":
-                raise ValueError("xs_mode='e0grid' requires "
-                                 "transport='table' (the preimages invert "
-                                 "the stopping table)")
-            return
-        if self.transport == "table":
-            raise not_ported("sampling='mc' with transport='table' (the "
-                             "e0grid and table-lookup mc paths)", "slice 2")
-        if self.xs_mode == "e0grid":
+        if self.sampling != "mc" and self.xs_mode != "e0grid":
+            raise ValueError(f"sampling={self.sampling!r} requires "
+                             "xs_mode='e0grid'")
+        if self.xs_mode == "e0grid" and self.transport != "table":
             raise ValueError("xs_mode='e0grid' requires transport='table' "
                              "(the preimages invert the stopping table)")
-        if self.stopping is None:
+        if self.transport == "table" and self.stopping_table is None:
+            raise ValueError("transport='table' requires stopping_table")
+        if self.sampling != "mc":
+            return
+        if self.transport == "rk4" and self.stopping is None:
             raise ValueError("transport='rk4' requires stopping")
         if self.n_redraw_rounds > 0:
             raise not_ported(f"n_redraw_rounds={self.n_redraw_rounds} with "
@@ -202,44 +218,59 @@ def taylor_coeffs(spec: ForwardSpec) -> np.ndarray:
 class ForwardTables:
     """The host tables the forward reads (numpy).  Built by the port
     (:func:`forward_tables`) or converted from the JAX package's arrays
-    (:func:`forward_tables_from_numpy`).  The counts estimator reads
-    ``e0_grid``; the mc estimator ``taylor``, ``bethe`` and ``xs_coeffs``.
+    (:func:`forward_tables_from_numpy`).  ``xs_mode='e0grid'`` reads
+    ``e0_grid``; the other two ``taylor`` and ``xs_coeffs``, and on
+    ``transport='rk4'`` ``bethe``; ``zero_degree='expo'`` reads
+    ``expo_kernel`` and a single segment (``zt`` zeros, ``zw`` ones).  The
+    stopping table's spline is read from ``spec.stopping_table``.
     """
 
-    timing_kernel: np.ndarray     # (T,) exGaussian taps
+    timing_kernel: np.ndarray     # (T,) beam-timing taps
     zt: np.ndarray                # (Be, K) zero-degree segment times
     zw: np.ndarray                # (Be, K) zero-degree segment weights
     e0_grid: Optional[E0GridTable] = None
     taylor: Optional[np.ndarray] = None      # (4, Be)
     bethe: Optional[tuple] = None            # closed-form (A, P, Q)
     xs_coeffs: Optional[np.ndarray] = None   # (4, n_cells) of spec.xs
+    expo_kernel: Optional[np.ndarray] = None  # (7,) zero-degree 'expo' taps
 
 
 def forward_tables(spec: ForwardSpec) -> ForwardTables:
     """Tables of ``spec``, built by the port in numpy."""
-    zd = ZeroDegreeTimingSpread(length=spec.geometry.zero_deg_length)
-    zt, zw = zd.times_and_weights(spec.en_centers())
-    common = dict(timing_kernel=spec.beam_timing.kernel, zt=zt, zw=zw)
-    if spec.sampling == "counts":
-        if spec.e0_grid_table is None:
-            raise ValueError("xs_mode='e0grid' requires e0_grid_table "
-                             "(ops.e0grid.build_e0_grid_table)")
+    if spec.zero_degree == "segments":
+        zd = ZeroDegreeTimingSpread(length=spec.geometry.zero_deg_length)
+        zt, zw = zd.times_and_weights(spec.en_centers())
+        expo = None
+    else:
+        # 'expo' has no segments: the lattice is histogrammed as it is
+        zt = np.zeros((spec.ed_binning.n, 1), np.float32)
+        zw = np.ones((spec.ed_binning.n, 1), np.float32)
+        expo = zero_degree_expo_kernel()
+    if spec.xs_mode == "e0grid" and spec.e0_grid_table is None:
+        raise ValueError("xs_mode='e0grid' requires e0_grid_table "
+                         "(ops.e0grid.build_e0_grid_table)")
+    common = dict(timing_kernel=spec.beam_timing.kernel, zt=zt, zw=zw,
+                  expo_kernel=expo)
+    if spec.xs_mode == "e0grid":
         return ForwardTables(**common, e0_grid=spec.e0_grid_table)
-    return ForwardTables(**common, taylor=taylor_coeffs(spec),
-                         bethe=bethe_closed_form_constants(spec.stopping),
-                         xs_coeffs=spec.xs.coeffs)
+    return ForwardTables(
+        **common, taylor=taylor_coeffs(spec), xs_coeffs=spec.xs.coeffs,
+        bethe=(bethe_closed_form_constants(spec.stopping)
+               if spec.transport == "rk4" else None))
 
 
 def forward_tables_from_numpy(*, timing_kernel, zt, zw, a_matrix=None,
                               e0_lo=None, e0_hi=None, n_fine=None,
                               t_ref=None, t_scale=None, n_x=None, n_ed=None,
                               ed_lo=None, ed_hi=None, taylor=None,
-                              bethe=None, xs_coeffs=None) -> ForwardTables:
+                              bethe=None, xs_coeffs=None,
+                              expo_kernel=None) -> ForwardTables:
     """Forward tables from plain arrays, e.g. the JAX package's
     ``E0GridTable`` fields (counts), its ``_taylor_coeffs``, Bethe
     (A, P, Q) and cross-section spline coefficients (mc),
-    ``ExGaussianTiming().kernel`` and the zero-degree ``(zt, zw)``: a test
-    can then tell "same tables" apart from "same forward arithmetic"."""
+    the beam-timing kernel, the zero-degree ``(zt, zw)`` and the 'expo'
+    kernel: a test can then tell "same tables" apart from "same forward
+    arithmetic"."""
     grid = None
     if a_matrix is not None:
         grid = E0GridTable(float(e0_lo), float(e0_hi), int(n_fine),
@@ -251,7 +282,8 @@ def forward_tables_from_numpy(*, timing_kernel, zt, zw, a_matrix=None,
         np.asarray(zw), grid,
         None if taylor is None else np.asarray(taylor, np.float64),
         None if bethe is None else tuple(float(v) for v in bethe),
-        None if xs_coeffs is None else np.asarray(xs_coeffs, np.float64))
+        None if xs_coeffs is None else np.asarray(xs_coeffs, np.float64),
+        None if expo_kernel is None else np.asarray(expo_kernel, np.float64))
 
 
 def _validate_e0grid_table(spec: ForwardSpec, tab: E0GridTable) -> None:
@@ -270,27 +302,21 @@ def _f32(array, device):
     return torch.as_tensor(np.array(array, np.float32), device=device)
 
 
-def _e0grid_contract(grid: E0Grid, moments: torch.Tensor) -> torch.Tensor:
-    """(..., 4, F) fine-cell moments -> (..., M, Be) grid: one float32
-    matmul (W*R, 4F) @ (4F, M*Be) against the static A operator."""
-    lead = moments.shape[:-2]
-    flat = moments.reshape(-1, 4 * grid.n_fine)
-    return (flat @ grid.a_matrix).reshape(lead + (grid.n_x, grid.n_ed))
-
-
 class TofForward(torch.nn.Module):
-    """Forward of a set of runs on one device: (W, 4 + R) thetas ->
+    """Forward of a set of runs on one device: (W, 4) beam parameters,
+    (W, R) run scales and, for oneBD, (W, R) background levels ->
     (W, R, n_pad) model spectra.  ``device`` defaults to the GPU.
 
-    Buffers: for the counts estimator the e0-grid operator (``e0grid``),
-    for the mc estimator the Taylor coefficients (``taylor``) and the
-    cross-section spline (``xs_coeffs``); then the x and eD bin centres,
+    Buffers, as the spec needs them: the e0-grid operator (``e0grid``),
+    the Taylor coefficients (``taylor``), the cross-section spline
+    (``xs_coeffs``), the stopping table's spline (``table_coeffs``), the
+    attenuation per x slice (``atten``); then the x and eD bin centres,
     the neutron leg of every (run, x, eD) lattice cell, the zero-degree
-    segment tables, the window constants (``win_*``), the
-    timing-convolution matrix and the per-run padding mask.  Building on a
-    CUDA device turns TF32 off for matmuls: the JAX package pins full
-    float32 precision (``precision='highest'``) on the contraction and the
-    convolution.
+    segment tables, the window constants (``win_*``), the 'expo' and
+    beam-timing convolution matrices and the per-run padding mask.
+    Building on a CUDA device turns TF32 off for matmuls: the JAX package
+    pins full float32 precision (``precision='highest'``) on the
+    contraction and the convolutions.
     """
 
     def __init__(self, spec: ForwardSpec, standoffs, windows, *,
@@ -307,24 +333,30 @@ class TofForward(torch.nn.Module):
         if len(standoffs) != self.n_runs:
             raise ValueError("one standoff per window")
         self.area = spec.ed_binning.width * spec.x_binning.width
+        eb = spec.ed_binning
 
-        if spec.sampling == "counts":
-            if spec.stopping_table is None:
-                raise ValueError("the e0grid operator inverts the stopping "
-                                 "table: spec.stopping_table is required")
+        self.e0grid = None
+        if spec.xs_mode == "e0grid":
             _validate_e0grid_table(spec, tables.e0_grid)
-            self.e0grid = E0Grid(tables.e0_grid, device=device)
+            self.e0grid = E0Grid(tables.e0_grid, device=device,
+                                 a_dtype=spec.a_dtype)
         else:
-            eb = spec.ed_binning
-            self.e0grid = None
-            self.rk4 = rk4_constants(spec.stopping, spec.x_binning.centers,
-                                     spec.rk4_substeps, bethe=tables.bethe)
             self.moment_bins = MomentBins(eb.lo, eb.hi, eb.n)
             self.register_buffer("taylor", _f32(tables.taylor, device))
             self.register_buffer("xs_coeffs", _f32(tables.xs_coeffs, device))
+            if spec.transport == "rk4":
+                self.rk4 = rk4_constants(
+                    spec.stopping, spec.x_binning.centers, spec.rk4_substeps,
+                    bethe=tables.bethe)
+            else:
+                self.register_buffer(
+                    "table_coeffs", spec.stopping_table.coeffs_tensor(device))
+        if spec.cell_attenuation:
+            self.register_buffer("atten", _f32(
+                cell_attenuation_coeffs(spec.x_binning.centers), device))
         x = spec.x_binning.centers.astype(np.float32)
         self.register_buffer("x", _f32(x, device))                    # (M,)
-        self.register_buffer("ed", _f32(spec.ed_binning.centers, device))
+        self.register_buffer("ed", _f32(eb.centers, device))
         # neutron leg of the lattice: static per run, (R, M, Be), in the
         # JAX package's float32 operation order (it sets TOF bin edges)
         en = spec.en_centers().astype(np.float32)
@@ -340,6 +372,9 @@ class TofForward(torch.nn.Module):
         n_pad = win.n_pad
         self.register_buffer("bin_widths", _f32(
             [[(w.hi - w.lo) / w.n_bins] for w in self.windows], device))
+        if spec.zero_degree == "expo":
+            self.register_buffer("expo", _f32(
+                causal_conv_matrix(tables.expo_kernel, n_pad), device))
         self.register_buffer("timing", _f32(
             same_conv_matrix(tables.timing_kernel, n_pad), device))
         self.register_buffer("pad_mask", torch.as_tensor(
@@ -353,7 +388,14 @@ class TofForward(torch.nn.Module):
         return WindowConstants(self.win_lo, self.win_hi, self.win_scale,
                                self.win_nb1, self.pad_mask.shape[-1])
 
-    # --- the counts estimator -------------------------------------------
+    def attenuate(self, grids: torch.Tensor) -> torch.Tensor:
+        """The beam attenuation along the cell, per x slice of (..., M, Be)
+        grids (``spec.cell_attenuation``; else the grids as they are)."""
+        if self.spec.cell_attenuation:
+            return grids * self.atten[:, None]
+        return grids
+
+    # --- the counts and expected estimators -----------------------------
 
     def counts_rates(self, params: torch.Tensor):
         """Poisson rates and conditional moments per walker: params
@@ -371,7 +413,18 @@ class TofForward(torch.nn.Module):
                          n_runs=self.n_runs)                  # (W, R, F+2)
         per_run = CountsRates(*(t[:, None] for t in rates))  # run axis
         moments, e0_means = moments_from_counts(self.e0grid, counts, per_run)
-        return _e0grid_contract(self.e0grid, moments), e0_means
+        return self.attenuate(contract(self.e0grid, moments)), e0_means
+
+    def _expected_grid_and_mean(self, params):
+        """One closed-form grid and mean per walker, shared by its runs:
+        ((W, 1, M, Be), (W, R))."""
+        spec = self.spec
+        moments, e0_mean = expected_moments(
+            self.e0grid, params[:, 0], params[:, 1], params[:, 2],
+            params[:, 3], spec.n_samples, spec.truncated,
+            spec.moment_closure)
+        grid = self.attenuate(contract(self.e0grid, moments))
+        return grid[:, None], e0_mean[:, None].expand(-1, self.n_runs)
 
     # --- the mc estimator -----------------------------------------------
 
@@ -388,35 +441,53 @@ class TofForward(torch.nn.Module):
                                            params[:, 2], params[:, 3],
                                            spec.truncated)
 
-    def energy_weight_grid(self, e0: torch.Tensor) -> torch.Tensor:
-        """Cross-section-weighted (x, eD) grids of initial energies:
-        (..., N) -> (..., M, Be).
+    def transport(self, e0: torch.Tensor) -> torch.Tensor:
+        """Energies at the M depths, (..., N) -> (..., M, N): the RK4
+        transport or the stopping-table lookup (``spec.transport``)."""
+        if self.spec.transport == "rk4":
+            return rk4_transport(self.rk4, e0)
+        return eval_stopped(self.spec.stopping_table, e0, self.table_coeffs)
 
-        'taylor': kernel K4's moments (..., M, 4, Be), contracted with the
-        Taylor coefficients over the channel axis.  'exact': RK4 transport,
-        the cross section of every transported energy, and kernel K3 over
-        the (..., M) rows; rows go in chunks of at most ``_EXACT_CHUNK``
-        (row, x, sample) elements, which bounds the peak memory of the
-        transported energies (4.1 GB per half-step of the production fit
-        unchunked).
+    def energy_weight_grid(self, e0: torch.Tensor) -> torch.Tensor:
+        """Cross-section-weighted (x, eD) grids of initial energies,
+        attenuation included: (..., N) -> (..., M, Be).
+
+        'e0grid': the per-sample fine-cell moments (..., 4, F), contracted
+        with the A operator.  'taylor': the moment histograms (..., M, 4,
+        Be) of the transported energies, from kernel K4 on the ODE path
+        and from the table lookup and the plain moment channels on
+        ``transport='table'`` (K4 fuses the RK4 and cannot take table
+        energies), contracted with the Taylor coefficients over the
+        channel axis.  'exact': the transport, the cross section of every
+        transported energy, and kernel K3 over the (..., M) rows; rows go
+        in chunks of at most ``_EXACT_CHUNK`` (row, x, sample) elements,
+        which bounds the peak memory of the transported energies (4.1 GB
+        per half-step of the production fit unchunked).
         """
+        spec = self.spec
+        if spec.xs_mode == "e0grid":
+            return self.attenuate(contract(
+                self.e0grid, fine_cell_moments(self.e0grid, e0)))
         lead, n = e0.shape[:-1], e0.shape[-1]
         rows = e0.reshape(-1, n).contiguous()
-        n_x, eb = len(self.rk4.h), self.spec.ed_binning
-        if self.spec.xs_mode == "taylor":
-            moments = transport_moments(rows, self.rk4, self.moment_bins)
+        n_x, eb = spec.x_binning.n, spec.ed_binning
+        if spec.xs_mode == "taylor":
+            if spec.transport == "rk4":
+                moments = transport_moments(rows, self.rk4, self.moment_bins)
+            else:
+                moments = energy_moments(self.transport, rows, n_x,
+                                         self.moment_bins)
             grid = torch.sum(moments * self.taylor, dim=-2)
         else:
             grid = torch.empty((rows.shape[0], n_x, eb.n),
                                dtype=torch.float32, device=rows.device)
             step = exact_rows_per_chunk(n_x, n)
             for start in range(0, rows.shape[0], step):
-                e_at_x = rk4_transport(self.rk4, rows[start:start + step])
-                w = eval_uniform_spline(self.spec.xs, e_at_x,
-                                        self.xs_coeffs)
+                e_at_x = self.transport(rows[start:start + step])
+                w = eval_uniform_spline(spec.xs, e_at_x, self.xs_coeffs)
                 grid[start:start + step] = weighted_histogram(
                     e_at_x, eb.lo, eb.hi, eb.n, w)
-        return grid.reshape(lead + (n_x, eb.n))
+        return self.attenuate(grid.reshape(lead + (n_x, eb.n)))
 
     def _mc_grid_and_mean(self, params, generator):
         e0 = self.sample_beam_energies(params, generator)    # (W, R, N)
@@ -428,8 +499,12 @@ class TofForward(torch.nn.Module):
                       generator: torch.Generator):
         """XS-weighted (x, eD) grids and e0 means of every walker and run:
         params (W, 4) -> ((W, R, M, Be), (W, R)).  Each run draws its own
-        Poisson cell counts (counts) or initial energies (mc);
-        ``generator`` (host) seeds the draw."""
+        Poisson cell counts (counts) or initial energies (mc), seeded by
+        the host ``generator``; 'expected' draws nothing, leaves
+        ``generator`` alone and returns one grid per walker,
+        (W, 1, M, Be), for all its runs."""
+        if self.spec.sampling == "expected":
+            return self._expected_grid_and_mean(params)
         if self.spec.sampling == "counts":
             grids, e0_means = self._counts_grid_and_mean(params, generator)
         else:
@@ -442,13 +517,15 @@ class TofForward(torch.nn.Module):
 
     def lattice(self, grids: torch.Tensor, e0_means: torch.Tensor):
         """Draw counts and TOF of every (x, eD) lattice cell:
-        ((W, R, M, Be), (W, R)) -> (base_tof, draws), both (W, R, M, Be)."""
+        ((W, R or 1, M, Be), (W, R)) -> (base_tof, draws), both
+        (W, R, M, Be)."""
         grids = grids / (torch.sum(grids, dim=(-2, -1), keepdim=True)
                          * self.area)
         draws = grids * self.spec.n_samples
         if self.spec.rint_draws:
             draws = torch.round(draws)
-        return self.cell_tof_lattice(e0_means), draws
+        base_tof = self.cell_tof_lattice(e0_means)
+        return base_tof, draws.expand_as(base_tof).contiguous()
 
     def cell_tof_lattice(self, e0_means: torch.Tensor) -> torch.Tensor:
         """tof_d((e0_mean + eD)/2, x) + tof_n(eN, L - x + standoff):
@@ -457,24 +534,63 @@ class TofForward(torch.nn.Module):
         tof_d = tof(masses.deuteron, eff_ed[..., None, :], self.x[:, None])
         return tof_d + self.tof_n
 
-    def spectra(self, base_tof: torch.Tensor, draws: torch.Tensor,
-                scales: torch.Tensor):
-        """TOF stage: lattice -> (W, R, n_pad) density spectra times the
-        run scales (W, R), zero past each run's n_bins."""
-        hist = tof_hist_segments(base_tof, draws, self.zt, self.zw, self.win)
+    def background(self, bg_levels: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+        """The per-run background of every bin, zero on the padding bins:
+        levels (W, R) -> (W, R, n_pad).  'expected': the level itself.
+        'poisson': one draw per bin (kernel K1, one launch), seeded by two
+        words of the host ``generator``; a level <= 0 draws 0."""
+        rates = bg_levels[..., None].expand(
+            bg_levels.shape + (self.pad_mask.shape[-1],))
+        if self.spec.bg_mode == "poisson":
+            rates = poisson(rates.contiguous(), seed_words(generator))
+        return torch.where(self.pad_mask, rates, 0.0)
+
+    def tof_histogram(self, base_tof: torch.Tensor,
+                      draws: torch.Tensor) -> torch.Tensor:
+        """The lattice histogrammed into each run's window (kernel K2):
+        spread over the zero-degree segments, or as it is ('expo': one
+        segment of time 0 and weight 1): -> (W, R, n_pad) sums."""
+        return tof_hist_segments(base_tof, draws, self.zt, self.zw, self.win)
+
+    def shape_spectra(self, hist: torch.Tensor, scales: torch.Tensor,
+                      background: Optional[torch.Tensor] = None):
+        """TOF sums (W, R, n_pad) -> model spectra: density normalisation,
+        for 'expo' the causal kernel and the padding bins re-zeroed, the
+        beam-timing convolution, the run scales (W, R) and the
+        ``background`` (W, R, n_pad) where there is one."""
         hist = hist / (torch.sum(hist, dim=-1, keepdim=True)
                        * self.bin_widths)
+        if self.spec.zero_degree == "expo":
+            # the causal tail bleeds into the padding bins: re-zero them so
+            # that the 'same' beam-timing convolution sees each run's own
+            # boundary
+            hist = torch.where(self.pad_mask,
+                               apply_same_matrix(hist, self.expo), 0.0)
         hist = apply_same_matrix(hist, self.timing)
-        return torch.where(self.pad_mask, scales[..., None] * hist, 0.0)
+        out = torch.where(self.pad_mask, scales[..., None] * hist, 0.0)
+        return out if background is None else out + background
 
-    def tof_spectra_multi(self, thetas: torch.Tensor,
+    def spectra(self, base_tof: torch.Tensor, draws: torch.Tensor,
+                scales: torch.Tensor,
+                background: Optional[torch.Tensor] = None):
+        """TOF stage: lattice -> (W, R, n_pad) density spectra times the
+        run scales (W, R), plus the ``background`` (W, R, n_pad) where
+        there is one; zero past each run's n_bins."""
+        return self.shape_spectra(self.tof_histogram(base_tof, draws),
+                                  scales, background)
+
+    def tof_spectra_multi(self, params: torch.Tensor, scales: torch.Tensor,
                           generator: torch.Generator,
-                          bg_levels=None) -> torch.Tensor:
-        """All runs of all walkers: thetas (W, 4 + R) -> (W, R, n_pad)."""
-        if bg_levels is not None:
-            raise not_ported("the Poisson/expected background", "slice 3")
-        grids, e0_means = self.grid_and_mean(thetas[:, :4], generator)
+                          bg_levels: Optional[torch.Tensor] = None):
+        """All runs of all walkers: beam parameters (W, 4), run scales
+        (W, R) and background levels (W, R) or None -> (W, R, n_pad).  The
+        host ``generator`` seeds first the grid's draw, then (only with a
+        Poisson background) the background's."""
+        grids, e0_means = self.grid_and_mean(params, generator)
         base_tof, draws = self.lattice(grids, e0_means)
-        return self.spectra(base_tof, draws, thetas[:, 4:4 + self.n_runs])
+        background = (None if bg_levels is None
+                      else self.background(bg_levels, generator))
+        return self.spectra(base_tof, draws, scales, background)
 
     forward = tof_spectra_multi

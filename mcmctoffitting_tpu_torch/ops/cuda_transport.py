@@ -81,13 +81,13 @@ def moment_check(moments: torch.Tensor, e: torch.Tensor,
     return counts_equal, (err / tol.clamp_min(1e-300)).max().item()
 
 
-def transport_moments_plain(e0: torch.Tensor, c: RK4Constants,
-                            bins: MomentBins) -> torch.Tensor:
-    """(R, N) initial energies -> (R, M, 4, n_bins) moment histograms:
-    :func:`ops.stopping.rk4_transport`, then a ``scatter_add_`` of the
-    channels over (depth, channel, bin) indices, in chunks of samples."""
+def energy_moments(transport, e0: torch.Tensor, n_x: int,
+                   bins: MomentBins) -> torch.Tensor:
+    """(R, N) initial energies -> (R, M, 4, n_bins) moment histograms of
+    the energies ``transport(e0)`` (R, M, n) at the M = ``n_x`` depths: a
+    ``scatter_add_`` of the channels over (depth, channel, bin) indices,
+    in chunks of samples."""
     n_rows, n = e0.shape
-    n_x = len(c.h)
     nb = bins.n_bins
     out = torch.zeros((n_rows, n_x * 4 * nb), dtype=torch.float32,
                       device=e0.device)
@@ -95,11 +95,18 @@ def transport_moments_plain(e0: torch.Tensor, c: RK4Constants,
     offs = (torch.arange(n_x, device=e0.device)[:, None, None] * 4
             + torch.arange(4, device=e0.device)[None, None, :]) * nb
     for start in range(0, n, chunk):
-        e = rk4_transport(c, e0[:, start:start + chunk])      # (R, M, n_c)
+        e = transport(e0[:, start:start + chunk])             # (R, M, n_c)
         idx, chans = moment_channels(e, bins)                 # (R, M, n_c, 4)
         flat = (offs + idx[..., None]).reshape(n_rows, -1)
         out.scatter_add_(1, flat, chans.reshape(n_rows, -1))
     return out.reshape(n_rows, n_x, 4, nb)
+
+
+def transport_moments_plain(e0: torch.Tensor, c: RK4Constants,
+                            bins: MomentBins) -> torch.Tensor:
+    """(R, N) initial energies -> (R, M, 4, n_bins) moment histograms:
+    :func:`ops.stopping.rk4_transport`, then :func:`energy_moments`."""
+    return energy_moments(lambda e: rk4_transport(c, e), e0, len(c.h), bins)
 
 
 @functools.lru_cache(maxsize=16)

@@ -7,7 +7,10 @@ linear operator A from per-fine-cell raw t-moments (S0..S3) to the
 (x, eD) grid; at run time the grid is one matmul ``S @ A``.
 
 The run-time half works on batched tensors: parameters of any leading
-shape (...), moments (..., 4, F).  The counts estimator is split into its
+shape (...), moments (..., 4, F).  The mc estimator sums the moments of
+its drawn initial energies (:func:`fine_cell_moments`), the 'expected'
+estimator takes them in closed form (:func:`expected_moments`).  The
+counts estimator is split into its
 three parts so that each can be tested alone:
 
 1. :func:`counts_lambdas` — closed-form Poisson rates of the F fine cells
@@ -192,8 +195,14 @@ class E0Grid(torch.nn.Module):
     """Device view of an :class:`E0GridTable`: the A operator and the
     fine-cell edges as buffers, the scalar constants as Python floats."""
 
-    def __init__(self, table: E0GridTable, *, device):
+    def __init__(self, table: E0GridTable, *, device,
+                 a_dtype: str = "float32"):
+        """``a_dtype='bfloat16'`` rounds A to bfloat16 (to nearest even)
+        and keeps the rounded values as float32, so that :func:`contract`
+        reads them as they are."""
         super().__init__()
+        if a_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"E0Grid: a_dtype {a_dtype!r}")
         self.e0_lo = float(table.e0_lo)
         self.e0_hi = float(table.e0_hi)
         self.n_fine = int(table.n_fine)
@@ -206,10 +215,50 @@ class E0Grid(torch.nn.Module):
         edges = torch.as_tensor(edges, dtype=torch.float32, device=device)
         self.register_buffer("edges", edges)                  # (F+1,)
         self.register_buffer("t_edges", (edges - self.t_ref) / self.t_scale)
-        self.register_buffer("a_matrix", torch.as_tensor(
-            table.a_matrix, dtype=torch.float32, device=device))
+        a_matrix = torch.as_tensor(table.a_matrix, dtype=torch.float32,
+                                   device=device)
+        if a_dtype == "bfloat16":
+            a_matrix = a_matrix.to(torch.bfloat16).to(torch.float32)
+        self.register_buffer("a_matrix", a_matrix)
         self.register_buffer("js", torch.arange(4, dtype=torch.float32,
                                                 device=device))
+
+
+def contract(grid: E0Grid, moments: torch.Tensor) -> torch.Tensor:
+    """(..., 4, F) fine-cell moments -> (..., M, Be) grid: one float32
+    matmul (rows, 4F) @ (4F, M*Be) against the static A operator.  The
+    moments are never rounded, whatever A was rounded to (the cubic
+    reconstruction cancels across the four channel rows, so rounding the
+    moments too would cost several percent of the grid)."""
+    lead = moments.shape[:-2]
+    flat = moments.reshape(-1, 4 * grid.n_fine)
+    return (flat @ grid.a_matrix).reshape(lead + (grid.n_x, grid.n_ed))
+
+
+def fine_cell_moments(grid: E0Grid, e0: torch.Tensor) -> torch.Tensor:
+    """Raw t-moments of drawn initial energies per fine cell:
+    (..., N) -> (..., 4, F), the sums of base, base t, base t^2 and
+    base t^2 t over the samples of each cell, with cell =
+    clip(floor((e0 - e0_lo) F / (e0_hi - e0_lo)), 0, F - 1), base = 1
+    inside the closed range [e0_lo, e0_hi] and 0 outside (NaN included)
+    and t = (e0 - t_ref) / t_scale.  One float32 ``scatter_add_`` per
+    channel, for every F."""
+    f = grid.n_fine
+    lead, n = e0.shape[:-1], e0.shape[-1]
+    rows = e0.reshape(-1, n)
+    inv_cell = f / (grid.e0_hi - grid.e0_lo)
+    inv_tscale = 1.0 / grid.t_scale
+    in_range = (rows >= grid.e0_lo) & (rows <= grid.e0_hi)
+    u = torch.floor((rows - grid.e0_lo) * inv_cell)
+    idx = torch.clamp(torch.where(in_range, u, 0.0), 0, f - 1).to(torch.int64)
+    base = in_range.to(rows.dtype)
+    t = torch.where(in_range, (rows - grid.t_ref) * inv_tscale, 0.0)
+    t2 = t * t
+    out = torch.zeros((4, rows.shape[0], f), dtype=rows.dtype,
+                      device=rows.device)
+    for k, chan in enumerate((base, base * t, base * t2, base * t2 * t)):
+        out[k].scatter_add_(-1, idx, chan)
+    return out.movedim(0, 1).reshape(lead + (4, f))
 
 
 def _lognorm_w_machinery(beam_e, e_loss, scale, s):

@@ -9,9 +9,11 @@ dE/dx = -(A/E)(P + Q ln E) of ``ops/pallas_forward.py``.
 
 The mc path transports every sample with the closed form, in float32, in
 the operation order of kernel K4 (``csrc/transport_moments.cu``), so the
-plain version and the kernel round alike.  The table lookup of the counts
-path (``eval_stopped``) is not ported: the counts path reads the table
-only through the e0-grid operator (``ops/e0grid.py``).
+plain version and the kernel round alike.  The table lookup
+(``StoppingTable.eval_stopped``, :func:`eval_stopped`) serves the mc
+estimator on ``transport='table'`` with ``xs_mode`` 'taylor' or 'exact';
+the e0grid paths read the table only through the e0-grid operator
+(``ops/e0grid.py``).
 """
 from __future__ import annotations
 
@@ -182,6 +184,22 @@ class StoppingTable:
         coeffs = cubic_spline_coeffs(e0_grid, table)
         return cls(e0_grid, x_centers, table.T.copy().T, coeffs)
 
+    def coeffs_tensor(self, device) -> torch.Tensor:
+        """The spline coefficients as :func:`eval_stopped` reads them:
+        (4, M, G-1) float32 on ``device`` (segments along the last axis)."""
+        return torch.as_tensor(
+            np.ascontiguousarray(
+                np.transpose(self.coeffs, (0, 2, 1)).astype(np.float32)),
+            device=device)
+
+    def eval_stopped(self, e_zero: torch.Tensor,
+                     coeffs: torch.Tensor | None = None) -> torch.Tensor:
+        """E at every x column for each sample, in the JAX package's
+        layout: (..., N) -> (..., N, M)."""
+        if coeffs is None:
+            coeffs = self.coeffs_tensor(e_zero.device)
+        return eval_stopped(self, e_zero, coeffs).movedim(-2, -1)
+
     def __hash__(self):
         return hash((self.e0_grid.tobytes(), self.x_centers.tobytes(),
                      self.table.tobytes()))
@@ -191,6 +209,34 @@ class StoppingTable:
                 and np.array_equal(self.e0_grid, other.e0_grid)
                 and np.array_equal(self.x_centers, other.x_centers)
                 and np.array_equal(self.table, other.table))
+
+
+def eval_stopped(table: StoppingTable, e0: torch.Tensor,
+                 coeffs: torch.Tensor) -> torch.Tensor:
+    """Table lookup of the energies at every depth, in the layout of
+    :func:`rk4_transport`: (..., N) initial energies -> (..., M, N).
+
+    The E0 grid is uniform, so the segment index is arithmetic:
+    ``int((e - lo) / step)`` (truncation toward zero, then clipped to the
+    table: energies outside it extrapolate the end segments), ``dt = e -
+    (lo + step idx)``, then Horner in float32 on the segment's cubic.  The
+    coefficients (``table.coeffs_tensor``) are gathered per (depth, sample);
+    a NaN energy reads segment 0 and stays NaN.
+    """
+    lo = float(table.e0_grid[0])
+    step = float(table.e0_grid[1] - table.e0_grid[0])
+    n_seg = table.e0_grid.shape[0] - 1
+    n_x = coeffs.shape[1]
+    u = torch.nan_to_num((e0 - lo) / step, nan=0.0)
+    # truncation then a clip to [0, n_seg - 1] is a clip then truncation
+    idx = torch.clamp(u, 0.0, n_seg - 1.0).to(torch.int64)
+    dt = (e0 - (lo + step * idx.to(e0.dtype)))[..., None, :]
+    lead = e0.shape[:-1]
+    at = idx[..., None, :].expand(lead + (n_x, e0.shape[-1]))
+    c3, c2, c1, c0 = (
+        torch.gather(coeffs[k].expand(lead + coeffs.shape[1:]), -1, at)
+        for k in range(4))
+    return ((c3 * dt + c2) * dt + c1) * dt + c0
 
 
 def _rk4_transport_np(stopping: BetheStopping, e0, x_eval, n_substeps,

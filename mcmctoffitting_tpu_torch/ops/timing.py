@@ -1,10 +1,13 @@
-"""Instrument timing response: the exGaussian beam pulse and the
-10-segment zero-degree transit spread.
+"""Instrument timing response: the exGaussian and Gaussian beam pulses,
+the oneBD exponential zero-degree transit kernel and the 10-segment
+zero-degree transit spread.
 
 Port of ``mcmctoffitting_tpu/ops/timing.py`` (``ExGaussianTiming``,
+``GaussianTiming``, ``zero_degree_expo_kernel``/``apply_zero_degree_expo``,
 ``ZeroDegreeTimingSpread.times_and_weights``).  The kernels are host numpy
-(f64) tables; the 'same'-mode convolution is batched over any leading axes
-and written as one float32 matmul against a banded matrix, so it runs in
+(f64) tables; each convolution ('same' for the beam pulse, the causal
+trimmed 'full' for the expo stage) is batched over any leading axes and
+written as one float32 matmul against a banded matrix, so it runs in
 full float32 on the card (no cuDNN convolution, whose float32 path uses
 TF32 by default).
 """
@@ -41,8 +44,28 @@ def same_conv_matrix(kernel: np.ndarray, n: int) -> np.ndarray:
     return np.where(valid, kernel[np.clip(tap, 0, len(kernel) - 1)], 0.0)
 
 
+def causal_conv_matrix(kernel: np.ndarray, n: int) -> np.ndarray:
+    """(n, n) matrix T with ``x @ T == np.convolve(x, kernel, 'full')[:n]``:
+    the 'full' convolution trimmed back to the input length, which keeps
+    the causal tail only (y[j] = sum_{i <= j} x[i] k[j - i])."""
+    kernel = np.asarray(kernel, dtype=np.float64)
+    tap = np.arange(n)[None, :] - np.arange(n)[:, None]
+    valid = (tap >= 0) & (tap < len(kernel))
+    return np.where(valid, kernel[np.clip(tap, 0, len(kernel) - 1)], 0.0)
+
+
+class _SameSpreading:
+    """``apply_spreading`` of a timing response with a ``kernel``."""
+
+    def apply_spreading(self, spectra: torch.Tensor) -> torch.Tensor:
+        """'same'-mode convolution along the last axis of (..., n)."""
+        mat = same_conv_matrix(self.kernel, spectra.shape[-1])
+        return apply_same_matrix(spectra, torch.as_tensor(
+            mat, dtype=spectra.dtype, device=spectra.device))
+
+
 @dataclasses.dataclass(frozen=True)
-class ExGaussianTiming:
+class ExGaussianTiming(_SameSpreading):
     """Normalised binned exGaussian kernel: window [ceil(-5 sigma),
     ceil(10 tau)] with 1 ns bins, evaluated at bin centres, unit sum."""
 
@@ -60,16 +83,44 @@ class ExGaussianTiming:
         vals = _exgaussian_np(centers, self.sigma, self.tau)
         return vals / vals.sum()
 
-    def apply_spreading(self, spectra: torch.Tensor) -> torch.Tensor:
-        """'same'-mode convolution along the last axis of (..., n)."""
-        mat = same_conv_matrix(self.kernel, spectra.shape[-1])
-        return apply_same_matrix(spectra, torch.as_tensor(
-            mat, dtype=spectra.dtype, device=spectra.device))
+
+@dataclasses.dataclass(frozen=True)
+class GaussianTiming(_SameSpreading):
+    """Gaussian timing spread, oneBD style: 11 taps on
+    ``linspace(-20, 20, 11)`` whatever sigma and the bin width are (the
+    reference hard-codes that support), unit sum."""
+
+    sigma: float = 1.0
+    bin_width: float = 1.0
+
+    @property
+    def kernel(self) -> np.ndarray:
+        centers = np.linspace(-20.0, 20.0, 11)
+        vals = np.exp(-((centers / self.sigma) ** 2) / 2.0)
+        return vals / vals.sum()
+
+
+def zero_degree_expo_kernel() -> np.ndarray:
+    """oneBD zero-degree transit kernel: exp(-t/2) at
+    t = linspace(0, 24, 7), unit sum."""
+    centers = np.linspace(0.0, 24.0, 7)
+    vals = np.exp(-centers / 2.0)
+    return vals / vals.sum()
+
+
+def apply_zero_degree_expo(spectra: torch.Tensor,
+                           kernel=None) -> torch.Tensor:
+    """'full'-mode convolution with the expo kernel along the last axis of
+    (..., n), trimmed back to n bins (the causal tail only)."""
+    k = zero_degree_expo_kernel() if kernel is None else np.asarray(kernel)
+    mat = causal_conv_matrix(k, spectra.shape[-1])
+    return apply_same_matrix(spectra, torch.as_tensor(
+        mat, dtype=spectra.dtype, device=spectra.device))
 
 
 def apply_same_matrix(spectra: torch.Tensor,
                       mat: torch.Tensor) -> torch.Tensor:
-    """(..., n) @ (n, n): the batched 'same' convolution, one matmul."""
+    """(..., n) @ (n, n): a batched convolution as one matmul."""
     lead = spectra.shape[:-1]
     return (spectra.reshape(-1, spectra.shape[-1]) @ mat).reshape(
         lead + (mat.shape[-1],))

@@ -13,14 +13,22 @@ import numpy as np
 import torch
 
 
+# the truth the oneBD command-line fit synthesises its data at:
+# (eLoss, scale, s, N_1..N_3, BG_1..BG_3)
+ONEBD_TRUTH = np.array([1300.0, 80.0, 0.6, 5e4, 5e4, 5e4, 20.0, 20.0, 20.0])
+
+
 def synthesize_observed(seed: int, problem,
                         theta_truth) -> tuple[np.ndarray, ...]:
     """Per-run Poisson-fluctuated count histograms at ``theta_truth``
-    (float64 arrays, one per run window)."""
+    (float64 arrays, one per run window), for any joint-fit problem
+    (``run_spectra``, ``windows``, ``device``): the model spectra as the
+    likelihood sees them, the background included where the problem has
+    one."""
     theta = torch.as_tensor(np.asarray(theta_truth, np.float32),
                             device=problem.device)[None]
     generator = torch.Generator().manual_seed(seed)    # the forward's draws
-    spectra = problem.forward(theta, generator)[0]
+    spectra = problem.run_spectra(theta, generator)[0]
     spectra = spectra.double().cpu().numpy()
     rng = np.random.default_rng(seed)
     return tuple(

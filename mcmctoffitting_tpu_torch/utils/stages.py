@@ -1,13 +1,16 @@
 """Where the time of one half-step goes, on the GPU.
 
-    python -m mcmctoffitting_tpu_torch.utils.stages [--sampling mc]
-        [--xs-mode taylor] [--walkers 256] [--draws 200000]
-        [--out chiprun_out/stages_mc_taylor.json]
+    python -m mcmctoffitting_tpu_torch.utils.stages [--model simult|onebd]
+        [--hardcore] [--sampling mc|counts|expected]
+        [--transport table|rk4] [--xs-mode e0grid|taylor|exact]
+        [--fine-grid F] [--walkers 256] [--draws 200000]
+        [--out chiprun_out/stages_onebd_hardcore_counts.json]
 
-Builds the simultFit problem (``--sampling counts``: F = 512 e0grid;
-``--sampling mc``: the ODE path, ``transport='rk4'``) on the GPU, warms
-it up, then measures, for one half-step's log-prob (``walkers / 2``
-walkers x 4 runs):
+Builds the problem from the model's preset on the GPU (simultFit: 4 runs;
+oneBD: 3 runs, ``--hardcore`` for the 400 x 20 grid; ``--transport rk4``
+is simultFit's ODE path, where an 'e0grid' ``--xs-mode`` means 'taylor'),
+warms it up, then measures, for one half-step's log-prob (``walkers / 2``
+walkers):
 
 * the stage split: each stage of the log-prob run alone, with a
   ``torch.cuda.synchronize`` after it, host clock, mean of ``--reps``;
@@ -17,7 +20,11 @@ walkers x 4 runs):
   window);
 * ``torch.profiler`` over ``--profile-steps`` DE steps: device time by
   kernel, the number of device operations (kernels, copies, memsets),
-  and the device's busy share of the unprofiled step time.
+  and the device's busy share: the time some device operation was running
+  over the span from the first operation's start to the last one's end,
+  both read from the same profiled steps.  The profiler slows the host
+  (``profiled_step_ms`` beside ``step_ms`` says by how much), so on a
+  host-bound path the share is a lower bound of the unprofiled one.
 
 Prints one JSON object (also written to ``--out``) with the card's name
 and power limit.  Needs a CUDA GPU; it never runs on the CPU.
@@ -34,10 +41,10 @@ import numpy as np
 import torch
 
 from .. import sampler
-from ..models import simult
-from ..models.forward import _e0grid_contract
+from ..models import onebd, simult
 from ..ops.cuda_poisson import poisson
-from ..ops.e0grid import CountsRates, moments_from_counts
+from ..ops.e0grid import (CountsRates, contract, expected_moments,
+                          fine_cell_moments, moments_from_counts)
 from ..ops.likelihoods import (box_lnprior, poisson_binned_loglike,
                                poisson_logpmf_loglike)
 from ..ops.poisson import seed_words
@@ -63,86 +70,136 @@ def _timed(fn, reps):
 
 
 def _stages(problem, thetas, obs, gen):
-    """(name, fn) per stage of ``problem.log_prob``; each fn returns its
-    output, fed by the previous stage's stored result."""
+    """[(name, fn)] per stage of ``problem.log_prob``; each fn stores its
+    output for the stages after it and returns it (the last one the
+    log-prob)."""
     fwd = problem.forward
     spec = problem.spec
-    params = thetas[:, :4]
+    params, scales, bg_levels = problem.split_theta(thetas)
     out = {}
+    stages = []
 
-    def keep(name, fn):
+    def stage(name, key, fn):
         def run():
-            out[name] = fn()
-            return out[name]
-        return name, run
+            out[key] = fn()
+            return out[key]
+        stages.append((name, run))
+
+    def e0grid_tail(moments_key):
+        stage("A contraction", "grid",
+              lambda: contract(fwd.e0grid, out[moments_key]))
+        if spec.cell_attenuation:
+            stage("attenuation", "grid", lambda: fwd.attenuate(out["grid"]))
 
     if spec.sampling == "counts":
-        def k1():
-            return poisson(out["rates"].lam, seed_words(gen),
-                           n_runs=fwd.n_runs)
-
         def moments():
             per_run = CountsRates(*(t[:, None] for t in out["rates"]))
-            return moments_from_counts(fwd.e0grid, out["counts"], per_run)
+            out["moments"], out["mean"] = moments_from_counts(
+                fwd.e0grid, out["counts"], per_run)
+            return out["moments"]
 
-        grid_stages = [
-            keep("rates", lambda: fwd.counts_rates(params)),
-            keep("counts", k1),
-            keep("moments", moments),
-            keep("grid", lambda: (_e0grid_contract(fwd.e0grid,
-                                                   out["moments"][0]),
-                                  out["moments"][1])),
-        ]
-        names = ["rates (ndtr chain)", "K1 poisson", "moments_from_counts",
-                 "A contraction"]
+        stage("rates (ndtr chain)", "rates", lambda: fwd.counts_rates(params))
+        stage("K1 poisson (cell counts)", "counts",
+              lambda: poisson(out["rates"].lam, seed_words(gen),
+                              n_runs=fwd.n_runs))
+        stages.append(("moments_from_counts", moments))
+        e0grid_tail("moments")
+    elif spec.sampling == "expected":
+        def moments():
+            m, mean = expected_moments(
+                fwd.e0grid, params[:, 0], params[:, 1], params[:, 2],
+                params[:, 3], spec.n_samples, spec.truncated,
+                spec.moment_closure)
+            out["moments"] = m[:, None]
+            out["mean"] = mean[:, None].expand(-1, fwd.n_runs)
+            return out["moments"]
+
+        stages.append(("expected moments (ndtr chain)", moments))
+        e0grid_tail("moments")
     else:
-        grid_stages = [
-            keep("e0", lambda: fwd.sample_beam_energies(params, gen)),
-            keep("grid", lambda: (fwd.energy_weight_grid(out["e0"]),
-                                  torch.mean(out["e0"], dim=-1))),
-        ]
-        names = ["beam draw (device uniforms, ndtri)",
-                 "K4 moments + Taylor contraction"
-                 if spec.xs_mode == "taylor" else
-                 "RK4 + cross sections + K3 (row chunks)"]
+        stage("beam draw (device uniforms)", "e0",
+              lambda: fwd.sample_beam_energies(params, gen))
+        stage("e0 mean", "mean", lambda: torch.mean(out["e0"], dim=-1))
+        if spec.xs_mode == "e0grid":
+            stage("fine-cell moments (scatter_add_)", "moments",
+                  lambda: fine_cell_moments(fwd.e0grid, out["e0"]))
+            e0grid_tail("moments")
+        else:
+            name = {("taylor", "rk4"): "K4 moments + Taylor contraction",
+                    ("taylor", "table"):
+                        "table lookup + moment channels + Taylor",
+                    ("exact", "rk4"):
+                        "RK4 + cross sections + K3 (row chunks)",
+                    ("exact", "table"):
+                        "table lookup + cross sections + K3 (row chunks)",
+                    }[(spec.xs_mode, spec.transport)]
+            stage(name, "grid", lambda: fwd.energy_weight_grid(out["e0"]))
 
     def like():
-        spectra = out["spectra"]
         fn = (poisson_binned_loglike if problem.likelihood == "reference"
               else poisson_logpmf_loglike)
-        return torch.sum(fn(spectra, obs.counts, mask=obs.mask), dim=-1)
+        return torch.sum(fn(out["spectra"], obs.counts, mask=obs.mask),
+                         dim=-1)
 
     def prior():
         lo, hi = problem._bounds
         total = box_lnprior(thetas, lo, hi, inclusive=True) + out["like"]
         return torch.where(torch.isnan(total), -torch.inf, total)
 
-    tail = [
-        keep("lattice", lambda: fwd.lattice(*out["grid"])),
-        keep("spectra", lambda: fwd.spectra(*out["lattice"],
-                                            thetas[:, 4:4 + fwd.n_runs])),
-        keep("like", like),
-        keep("prior", prior),
-    ]
-    names += ["lattice + rint", "K2 TOF histogram + density + timing",
-              f"{problem.likelihood} likelihood", "prior + NaN guards"]
-    return list(zip(names, (fn for _, fn in grid_stages + tail)))
+    stage("lattice + rint", "lattice",
+          lambda: fwd.lattice(out["grid"], out["mean"]))
+    stage("K2 TOF histogram", "hist",
+          lambda: fwd.tof_histogram(*out["lattice"]))
+    out["background"] = None
+    if bg_levels is not None:
+        stage("background" + (" (K1 poisson)" if spec.bg_mode == "poisson"
+                              else ""), "background",
+              lambda: fwd.background(bg_levels, gen))
+    stage("density + " + ("expo + " if spec.zero_degree == "expo" else "")
+          + "timing + scale", "spectra",
+          lambda: fwd.shape_spectra(out["hist"], scales, out["background"]))
+    stage(f"{problem.likelihood} likelihood", "like", like)
+    stage("prior + NaN guards", "logp", prior)
+    return stages
 
 
-def measure(sampling="mc", xs_mode="taylor", likelihood="reference",
+def build_problem(model="simult", hardcore=False, sampling="mc",
+                  transport="table", xs_mode="e0grid",
+                  likelihood="reference", n_draws=200_000, device="cuda",
+                  fine_grid=None):
+    """(problem, truth) of a preset (``fine_grid`` overrides its F)."""
+    if model == "onebd":
+        spec = onebd.default_spec(n_draws, hardcore=hardcore,
+                                  fine_grid=fine_grid, xs_mode=xs_mode,
+                                  sampling=sampling)
+        problem = onebd.OneBDProblem(spec, likelihood=likelihood,
+                                     device=device)
+        truth = data_io.ONEBD_TRUTH
+    else:
+        spec = simult.default_spec(n_draws, fine_grid=fine_grid,
+                                   transport=transport, xs_mode=xs_mode,
+                                   sampling=sampling)
+        problem = simult.SimultFitProblem(spec, n_runs=4,
+                                          likelihood=likelihood,
+                                          device=device)
+        truth = np.concatenate([simult.GUESS_SHARED, np.full(4, 5.0e4)])
+    return problem, truth
+
+
+def measure(model="simult", hardcore=False, sampling="mc",
+            transport="table", xs_mode="e0grid", likelihood="reference",
             n_walkers=256, n_draws=200_000, reps=20, steps=10,
-            profile_steps=3):
+            profile_steps=3, fine_grid=None):
     if not torch.cuda.is_available():
         raise SystemExit("stages: needs a CUDA GPU")
     dev = torch.device("cuda", 0)
-    if sampling == "counts":
-        spec = simult.default_spec(n_draws, sampling="counts")
-    else:
-        spec = simult.default_spec(n_draws, transport="rk4", sampling="mc",
-                                   xs_mode=xs_mode)
-    problem = simult.SimultFitProblem(spec, n_runs=4, likelihood=likelihood,
-                                      device=dev)
-    truth = np.concatenate([simult.GUESS_SHARED, np.full(4, 5.0e4)])
+    t0 = time.perf_counter()
+    problem, truth = build_problem(model, hardcore, sampling, transport,
+                                   xs_mode, likelihood, n_draws, dev,
+                                   fine_grid)
+    spec = problem.spec
+    problem.forward                                 # build the buffers
+    build_s = time.perf_counter() - t0
     observed = data_io.synthesize_observed(9, problem, truth)
     obs = problem.observed_runs(observed)
     logp = problem.make_log_prob_fn(observed)
@@ -167,32 +224,55 @@ def measure(sampling="mc", xs_mode="taylor", likelihood="reference",
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         sampler.run_mcmc(state, profile_steps, logp, move="de")
         torch.cuda.synchronize()
-    device_us, ops, by_kernel = 0.0, 0, {}
-    for evt in prof.key_averages():
-        d_us = getattr(evt, "self_device_time_total", None)
-        if d_us is None:
-            d_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if d_us and evt.device_type.name == "CUDA":
-            device_us += d_us
-            ops += evt.count
-            name = evt.key[:100]          # templated names run to pages
-            by_kernel[name] = by_kernel.get(name, 0.0) + d_us
+        profiled_step_ms = 1e3 * (time.perf_counter() - t0) / profile_steps
+    device_us, by_kernel, spans = 0.0, {}, []
+    for evt in prof.events():
+        if evt.device_type.name != "CUDA":
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        device_us += end - start
+        name = evt.name[:100]             # templated names run to pages
+        by_kernel[name] = by_kernel.get(name, 0.0) + (end - start)
+    if not spans:
+        raise SystemExit("stages: the profiler recorded no device operation")
+    ops = len(spans)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     device_ms_per_step = device_us / 1e3 / profile_steps
+    # busy share of the profiled window itself: the union of the device
+    # operations' intervals over first start .. last end
+    spans.sort()
+    busy_us, (cur_lo, cur_hi) = 0.0, spans[0]
+    for lo, hi in spans[1:]:
+        if lo > cur_hi:
+            busy_us += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    busy_us += cur_hi - cur_lo
+    window_us = max(hi for _, hi in spans) - spans[0][0]
     return {
-        "card": _smi(), "sampling": sampling,
+        "card": _smi(), "model": model, "hardcore": hardcore,
+        "sampling": sampling, "transport": spec.transport,
         "xs_mode": spec.xs_mode, "likelihood": likelihood,
+        "fine_cells": spec.e0_grid_fine if spec.xs_mode == "e0grid" else None,
+        "a_dtype": spec.a_dtype,
+        "grid": [spec.x_binning.n, spec.ed_binning.n],
+        "runs": problem.n_runs, "build_seconds": build_s,
         "walkers": n_walkers, "half_step_walkers": half.shape[0],
         "draws": n_draws,
         "stages_ms": dict(split), "stages_sum_ms": sum(t for _, t in split),
         "log_prob_ms": whole, "step_ms": step_ms,
         "walker_steps_per_s": n_walkers / (step_ms / 1e3),
         "profiled_steps": profile_steps,
+        "profiled_step_ms": profiled_step_ms,
         "device_ms_per_step": device_ms_per_step,
         "device_ops_per_step": ops / profile_steps,
-        "device_busy_share": device_ms_per_step / step_ms,
+        "device_window_ms_per_step": window_us / 1e3 / profile_steps,
+        "device_busy_share": busy_us / window_us,
         "top_kernels_ms_per_step": {k: v / 1e3 / profile_steps
                                     for k, v in top},
     }
@@ -200,11 +280,16 @@ def measure(sampling="mc", xs_mode="taylor", likelihood="reference",
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sampling", default="mc", choices=("mc", "counts"))
-    ap.add_argument("--xs-mode", default="taylor",
-                    choices=("taylor", "exact"))
+    ap.add_argument("--model", default="simult", choices=("simult", "onebd"))
+    ap.add_argument("--hardcore", action="store_true")
+    ap.add_argument("--sampling", default="mc",
+                    choices=("mc", "counts", "expected"))
+    ap.add_argument("--transport", default="table", choices=("table", "rk4"))
+    ap.add_argument("--xs-mode", default="e0grid",
+                    choices=("e0grid", "taylor", "exact"))
     ap.add_argument("--likelihood", default="reference",
                     choices=("reference", "poisson"))
+    ap.add_argument("--fine-grid", type=int, default=None)
     ap.add_argument("--walkers", type=int, default=256)
     ap.add_argument("--draws", type=int, default=200_000)
     ap.add_argument("--reps", type=int, default=20)
@@ -212,9 +297,10 @@ def main(argv=None):
     ap.add_argument("--profile-steps", type=int, default=3)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    result = measure(args.sampling, args.xs_mode, args.likelihood,
+    result = measure(args.model, args.hardcore, args.sampling,
+                     args.transport, args.xs_mode, args.likelihood,
                      args.walkers, args.draws, args.reps, args.steps,
-                     args.profile_steps)
+                     args.profile_steps, args.fine_grid)
     text = json.dumps(result, indent=1)
     print(text, flush=True)
     if args.out:

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from mcmctoffitting_tpu_torch.config import SIMULTFIT_X_BINNING
-from mcmctoffitting_tpu_torch.constants import TofWindow, tof_windows
+from mcmctoffitting_tpu_torch.constants import (TofWindow, tof_windows,
+                                                tof_windows_onebd)
 from mcmctoffitting_tpu_torch.ops import cuda_hist, cuda_transport
 from mcmctoffitting_tpu_torch.ops.cuda_build import load_library
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
@@ -340,3 +341,56 @@ def test_weighted_hist_kernel_refuses_too_many_bins(dev):
     cuda_hist.weighted_histogram(v, 0.0, 1.0, max_bins, v)
     with pytest.raises(ValueError, match="bins"):
         cuda_hist.weighted_histogram(v, 0.0, 1.0, max_bins + 1, v)
+
+
+ONEBD_WINDOWS = tuple(tof_windows_onebd[n] for n in ("close", "mid", "far"))
+
+
+@pytest.mark.parametrize("shape", [(8, 3, 10, 100), (16, 3, 20, 400)])
+def test_tof_kernel_with_one_segment(dev, shape):
+    """K2 as the oneBD 'expo' stage launches it: one segment (zt zeros, zw
+    ones), every lattice cell one sample, 25 bins of 4 ns, so bins far more
+    crowded than simultFit's.  Against the plain histogram of the lattice
+    as it is (1e-6 of the row's total), each bin the float32 nearest to the
+    float64 sum of its weights, and the same on every call."""
+    rng = np.random.default_rng(7)
+    base = torch.as_tensor(rng.uniform(70, 230, shape).astype(np.float32),
+                           device=dev)
+    draws = torch.as_tensor(np.rint(rng.uniform(0, 400, shape)).astype(
+        np.float32), device=dev)
+    zt = torch.zeros((shape[-1], 1), device=dev)
+    zw = torch.ones((shape[-1], 1), device=dev)
+    win = window_constants(ONEBD_WINDOWS, device=dev)
+    got = _k2_check(base, draws, zt, zw, win)
+    assert got.shape == shape[:2] + (25,)
+    from mcmctoffitting_tpu_torch.ops.histogram import (
+        weighted_histogram_multi_window)
+    exact = weighted_histogram_multi_window(
+        base.reshape(shape[:2] + (-1,)), win,
+        draws.reshape(shape[:2] + (-1,)), torch.float64)
+    # the float32 nearest to the exact sum, up to the 2^-39 of the row's
+    # total that the fixed point drops of each of the row's samples
+    total = draws.double().sum(dim=(-2, -1))[..., None]
+    n_samples = shape[-2] * shape[-1]
+    assert torch.all((got.double() - exact).abs()
+                     <= 6e-8 * exact + n_samples * 2.0 ** -39 * total)
+    assert torch.equal(got, tof_hist_segments(base, draws, zt, zw, win))
+
+
+def test_poisson_kernel_on_background_rates(dev):
+    """K1 on (W, R, 25) rates, each row 25 equal rates, as the oneBD
+    background draws them: rate 0 (and below) gives 0, both branches
+    (inversion below 10, PTRS from 10 on) agree with the plain version and
+    have the rate's mean and variance."""
+    levels = torch.tensor([0.0, -2.0, 0.5, 9.99, 10.0, 1000.0], device=dev)
+    lam = levels[None, :, None].expand(2048, -1, 25).contiguous()
+    got = poisson(lam, (21, 22))
+    want = plain_poisson.poisson_ptrs(lam, (21, 22))
+    assert (got == want).float().mean().item() >= 0.999
+    assert torch.all(got[:, :2] == 0)
+    for k, rate in enumerate(levels.tolist()[2:], start=2):
+        x = got[:, k].double().reshape(-1)
+        m = x.numel()
+        z_mean = (x.mean() - rate) / np.sqrt(rate / m)
+        z_var = (x.var() - rate) / np.sqrt((rate + 2 * rate * rate) / m)
+        assert abs(z_mean) < 5 and abs(z_var) < 5, (rate, z_mean, z_var)

@@ -114,6 +114,46 @@ def test_constants_copies_hold_the_same_values():
                     == getattr(theirs, field.name)), field.name
 
 
+def test_onebd_constants_copies_hold_the_same_values():
+    import dataclasses
+
+    import numpy as np
+
+    from mcmctoffitting_tpu import config as jconfig
+    from mcmctoffitting_tpu import constants as jconst
+    from mcmctoffitting_tpu_torch import config as tconfig
+    from mcmctoffitting_tpu_torch import constants as tconst
+    for name in ("ONEBD_ED_BINNING_DEFAULT", "ONEBD_ED_BINNING_HARDCORE",
+                 "ONEBD_X_BINNING_DEFAULT", "ONEBD_X_BINNING_HARDCORE"):
+        got, want = getattr(tconfig, name), getattr(jconfig, name)
+        assert (got.lo, got.hi, got.n) == (want.lo, want.hi, want.n), name
+        assert (got.centers == want.centers).all(), name
+        assert (got.edges == want.edges).all(), name
+    for fn, args in (("deuteron_binning_onebd", ()),
+                     ("deuteron_binning_onebd", (100,)),
+                     ("x_binning_onebd", ()), ("x_binning_onebd", (10,))):
+        got = getattr(tconfig, fn)(*args)
+        want = getattr(jconfig, fn)(*args)
+        assert (got.lo, got.hi, got.n) == (want.lo, want.hi, want.n), fn
+    x = tconfig.ONEBD_X_BINNING_HARDCORE.centers
+    assert np.array_equal(tconfig.cell_attenuation_coeffs(x),
+                          jconfig.cell_attenuation_coeffs(x))
+    assert (dataclasses.asdict(tconst.TUNL_SSA_CSI_ONEBD)
+            == dataclasses.asdict(jconst.TUNL_SSA_CSI_ONEBD))
+    for name in ("close", "mid", "far"):
+        assert (tconst.TUNL_SSA_CSI_ONEBD.standoff(name)
+                == jconst.TUNL_SSA_CSI_ONEBD.standoff(name)), name
+        got, want = tconst.tof_windows_onebd[name], \
+            jconst.tof_windows_onebd[name]
+        assert (got.lo, got.hi, got.n_bins) == (want.lo, want.hi,
+                                                want.n_bins), name
+        assert got.n_bins == 25
+    assert (dataclasses.asdict(tconst.onebd_consts)
+            == dataclasses.asdict(jconst.onebd_consts))
+    assert isinstance(tconst.tof_windows_onebd, tconst.TofWindowsOneBD)
+    assert isinstance(tconst.onebd_consts, tconst.OneBDExperimentConsts)
+
+
 def test_missing_nvcc_is_a_clear_error(monkeypatch):
     from mcmctoffitting_tpu_torch.ops import cuda_build
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)

@@ -202,7 +202,7 @@ def test_counts_path_draws_each_run_from_the_walkers_rates():
     hands K1 the rates once per walker equal, bit for bit, those of the
     rates copied along the run axis and drawn with the same seed words."""
     from mcmctoffitting_tpu_torch.models import forward as tforward
-    from mcmctoffitting_tpu_torch.ops.e0grid import (CountsRates,
+    from mcmctoffitting_tpu_torch.ops.e0grid import (CountsRates, contract,
                                                      moments_from_counts)
     spec = tsimult.default_spec(8000, sampling="counts", fine_grid=128)
     fwd = tsimult.SimultFitProblem(spec, n_runs=4, device="cpu").forward
@@ -221,7 +221,7 @@ def test_counts_path_draws_each_run_from_the_walkers_rates():
     counts = tp.poisson_ptrs(lam, words)
     per_run = CountsRates(*(t[:, None] for t in rates))
     moments, want_means = moments_from_counts(fwd.e0grid, counts, per_run)
-    want = tforward._e0grid_contract(fwd.e0grid, moments)
+    want = contract(fwd.e0grid, moments)
     np.testing.assert_array_equal(grids, want)
     np.testing.assert_array_equal(e0_means, want_means)
     assert not torch.equal(grids[:, 0], grids[:, 1])   # runs draw apart

@@ -334,38 +334,81 @@ def test_synthesize_observed():
     assert any(not np.array_equal(a[r], c[r]) for r in range(N_RUNS))
 
 
-NOT_PORTED = [("counts", "sampling", "mc"),
+NOT_PORTED = [("counts", "zero_degree", "none"),
+              ("mc", "n_redraw_rounds", 3)]
+# what earlier slices of the port refused and it now runs
+NOW_PORTED = [("counts", "sampling", "mc"),
               ("counts", "sampling", "expected"),
-              ("mc", "transport", "table"),
               ("counts", "a_dtype", "bfloat16"),
               ("counts", "cell_attenuation", True),
               ("counts", "zero_degree", "expo"),
-              ("counts", "zero_degree", "none")]
+              ("counts", "bg_mode", "expected")]
 
 
 @pytest.mark.parametrize("base,field,value", NOT_PORTED)
 def test_unported_spec_values_raise(base, field, value):
     """``base``: the counts spec of this file, or the mc spec on the ODE
-    path (mc with transport='table' is the JAX default, not ported yet)."""
+    path."""
     spec = (_spec(tsimult) if base == "counts" else
             tsimult.default_spec(N_DRAWS, transport="rk4", sampling="mc"))
     with pytest.raises(NotImplementedError, match="slice"):
         dataclasses.replace(spec, **{field: value})
 
 
+@pytest.mark.parametrize("base,field,value", NOW_PORTED)
+def test_ported_spec_values_run(base, field, value):
+    """Each value builds a forward on the counts spec of this file whose
+    spectra are finite, of the windows' shape and zero on the padding
+    bins; a result-changing value changes them."""
+    spec = dataclasses.replace(_spec(tsimult), **{field: value})
+    thetas = torch.as_tensor(_thetas(2))
+    bg = torch.full((2, N_RUNS), 7.0) if field == "bg_mode" else None
+    spectra = []
+    for sp in (_spec(tsimult), spec):
+        fwd = tsimult.SimultFitProblem(sp, n_runs=N_RUNS,
+                                       device="cpu").forward
+        spectra.append(fwd(thetas[:, :4], thetas[:, 4:],
+                           torch.Generator().manual_seed(3), bg))
+    base_spectra, got = spectra
+    assert got.shape == (2, N_RUNS, 70) and torch.all(torch.isfinite(got))
+    for r, win in enumerate(fwd.windows):
+        assert torch.all(got[:, r, win.n_bins:] == 0)
+    assert not torch.equal(got, base_spectra)
+    if field == "bg_mode":
+        # 'expected' adds the level itself; the counts draw has the seed
+        # of the 'poisson' run, whose background is a draw around it
+        diff = (got - base_spectra)[:, 0, :50]
+        assert (diff != 0).float().mean() > 0.5
+        assert abs(diff.mean().item()) < 2.0
+
+
 def test_unported_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tsimult.default_spec(N_DRAWS)         # the JAX default: mc, table
+    # the JAX default (mc, table, e0grid, F = 256) is the port's default
+    assert tsimult.default_spec(N_DRAWS).e0_grid_fine == 256
     # counts needs the table, as in the JAX package
     with pytest.raises(ValueError, match="transport='table'"):
         tsimult.default_spec(N_DRAWS, sampling="counts", transport="rk4")
     with pytest.raises(ValueError):
         dataclasses.replace(_spec(tsimult), moment_closure="quadratic")
+    with pytest.raises(ValueError, match="stopping_table"):
+        dataclasses.replace(_spec(tsimult), stopping_table=None)
+    with pytest.raises(ValueError, match="bg_mode"):
+        dataclasses.replace(_spec(tsimult), bg_mode="gaussian")
+    # the background of earlier slices' refusal: levels (W, R) are added
+    # to the real bins
     problem = tsimult.SimultFitProblem(_spec(tsimult), n_runs=N_RUNS,
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        problem.forward(torch.as_tensor(TRUTH[None], dtype=torch.float32),
-                        torch.Generator(), bg_levels=torch.ones(N_RUNS))
+    theta = torch.as_tensor(TRUTH[None], dtype=torch.float32)
+    spec_bg = dataclasses.replace(_spec(tsimult), bg_mode="expected")
+    with_bg = tsimult.SimultFitProblem(spec_bg, n_runs=N_RUNS,
+                                       device="cpu").forward(
+        theta[:, :4], theta[:, 4:], torch.Generator().manual_seed(1),
+        torch.ones((1, N_RUNS)))
+    without = problem.forward(theta[:, :4], theta[:, 4:],
+                              torch.Generator().manual_seed(1))
+    mask = problem.forward.pad_mask
+    torch.testing.assert_close(with_bg, without + mask.float()[None],
+                               rtol=0, atol=0)
 
 
 def test_default_device_is_the_gpu(monkeypatch):

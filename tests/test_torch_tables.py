@@ -41,6 +41,46 @@ def test_stopping_table_bitwise():
                                       getattr(want, field))
 
 
+@pytest.mark.parametrize("n_x", [10, 20])
+def test_onebd_stopping_table_bitwise(n_x):
+    """The oneBD table is built unguarded (``energy_floor=None``): rows
+    that stop inside the cell hold whatever the Bethe formula gives below
+    its sign change.  Table and spline coefficients bit for bit, a NaN
+    where the JAX package has one (this table holds none: such rows settle
+    at ~17.6 keV)."""
+    from mcmctoffitting_tpu.models import onebd as jonebd
+    from mcmctoffitting_tpu_torch.models import onebd as tonebd
+    want = jonebd._build_table(4 * 8.565e-5, n_x)
+    got = tonebd._build_table(tonebd.RHO, n_x)
+    assert got.table.shape == (23, n_x) and got.coeffs.shape == (4, 22, n_x)
+    for field in ("e0_grid", "x_centers", "table", "coeffs"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field))
+        assert np.array_equal(np.isnan(getattr(got, field)),
+                              np.isnan(getattr(want, field)))
+    assert got.table.min() < 20.0          # below the simultFit floor
+    assert hash(got) == hash(tonebd._build_table(tonebd.RHO, n_x))
+
+
+def test_onebd_a_matrix_bitwise():
+    """The oneBD operator (default grid, F = 64): cells fed by the
+    unguarded rows included."""
+    from mcmctoffitting_tpu.config import deuteron_binning_onebd as jbinning
+    from mcmctoffitting_tpu.models import onebd as jonebd
+    from mcmctoffitting_tpu_torch.config import deuteron_binning_onebd
+    from mcmctoffitting_tpu_torch.models import onebd as tonebd
+    want = je0.build_e0_grid_table(jonebd._build_table(4 * 8.565e-5, 10),
+                                   jbinning(100), jxs.ddn_xs_uniform,
+                                   n_fine=64)
+    got = te0.build_e0_grid_table(tonebd._build_table(tonebd.RHO, 10),
+                                  deuteron_binning_onebd(100),
+                                  txs.ddn_xs_uniform, n_fine=64)
+    np.testing.assert_array_equal(got.a_matrix, want.a_matrix)
+    for field in ("e0_lo", "e0_hi", "n_fine", "t_ref", "t_scale", "n_x",
+                  "n_ed", "ed_lo", "ed_hi"):
+        assert getattr(got, field) == getattr(want, field), field
+
+
 def test_spline_coeffs_bitwise():
     rng = np.random.default_rng(0)
     x = np.cumsum(rng.uniform(0.5, 2.0, 17))
