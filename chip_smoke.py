@@ -61,32 +61,57 @@ Phases (any failure raises; the exit code is then non-zero):
      mc; the full-width hardcore counts fit for both likelihoods (K1
      launched twice and K2 once per log-prob evaluation); a short default
      mc fit;
+ 12. determinism of the moment sums of mc on the table: on one half-step's
+     initial energies (128 walkers x 4 runs x 200k), the fine-cell
+     moments (e0grid) and the table 'taylor' moment channels, each called
+     twice, equal bit for bit, and equal to the CPU's on the same
+     energies (the moment channels on the first 16 of the 512 rows, which
+     are summed independently);
+ 13. the command-line drivers at full width on the card, in process (256
+     walkers, 200k draws, DE, 4 burn-in + 8 main steps in segments of 4):
+     simultFit counts (corrected likelihood), simultFit at its defaults
+     (mc on the table, e0grid) and oneBD -hardcore counts; finite
+     quantiles, mainchain.dat parsing back to (8, 256, D), the CLI's
+     walker-steps/s line, and K1/K2 launched per forward evaluation as
+     the path says (simultFit counts 1/1, mc 0/1, oneBD counts 2/1); then
+     one `python -m ...cli.simult_fit -debug 1 -batch 1` subprocess;
+ 14. exact resume on the card: for simultFit counts and the mc default, 4
+     burn-in + 4 main steps, then -resume main.ckpt.npz for 4 more, give
+     phase 13's mainchain.dat byte for byte;
  11. the second cross-check of phase 6: torch.profiler's kernel durations
-     of K1 and K2 beside the graph's (last, because a profiler that has
-     run makes every later launch dearer for the host).
+     of K1 and K2 beside the graph's (last, after phases 12-14, because a
+     profiler that has run makes every later launch dearer for the host).
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
 """
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from mcmctoffitting_tpu_torch import sampler
+from mcmctoffitting_tpu_torch.cli import csi_onebd as cli_onebd
+from mcmctoffitting_tpu_torch.cli import simult_fit as cli_simult
 from mcmctoffitting_tpu_torch.models import onebd, simult
+from mcmctoffitting_tpu_torch.models import problem as problem_mod
 from mcmctoffitting_tpu_torch.models.forward import exact_rows_per_chunk
 from mcmctoffitting_tpu_torch.ops import cuda_build, cuda_hist, cuda_transport
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
-from mcmctoffitting_tpu_torch.ops import stopping
+from mcmctoffitting_tpu_torch.ops import e0grid, stopping
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import philox_cuda, poisson
 from mcmctoffitting_tpu_torch.ops.cuda_tof import (tof_hist_segments,
                                                    tof_hist_segments_plain)
-from mcmctoffitting_tpu_torch.utils import data_io, devtime
+from mcmctoffitting_tpu_torch.utils import chain_io, data_io, devtime
 
 N_WALKERS, N_RUNS, N_DRAWS = 256, 4, 200_000
 N_WARM, N_TIMED = 20, 200            # counts fit
@@ -719,6 +744,179 @@ def phase_onebd(dev, smi, rate, acc, launches):
     }
 
 
+def phase_determinism(dev, p0):
+    """Phase 12: the moment sums of mc on the table, twice on the card
+    and once on the CPU, on one half-step's initial energies."""
+    half = N_WALKERS // 2
+    spec = simult.default_spec(N_DRAWS)
+    fwd = simult_problem(spec, "poisson", dev).forward
+    e0 = fwd.sample_beam_energies(p0[:half, :4],
+                                  torch.Generator().manual_seed(21))
+    first = e0grid.fine_cell_moments(fwd.e0grid, e0)
+    again = e0grid.fine_cell_moments(fwd.e0grid, e0)
+    cpu_fwd = simult_problem(spec, "poisson", "cpu").forward
+    on_cpu = e0grid.fine_cell_moments(cpu_fwd.e0grid, e0.cpu())
+    log(f"phase 12: fine-cell moments {tuple(first.shape)} of "
+        f"{tuple(e0.shape)} energies: two calls equal "
+        f"{torch.equal(first, again)}, equal to the CPU's "
+        f"{torch.equal(first.cpu(), on_cpu)}")
+    require(torch.equal(first, again), "fine-cell moments: two calls equal")
+    require(torch.equal(first.cpu(), on_cpu),
+            "fine-cell moments: the card's equal the CPU's bit for bit")
+    del first, again, on_cpu, cpu_fwd
+
+    spec_t = simult.default_spec(N_DRAWS, xs_mode="taylor")
+    fwd_t = simult_problem(spec_t, "poisson", dev).forward
+    rows = e0.reshape(-1, N_DRAWS)
+    n_x, mbins = spec_t.x_binning.n, fwd_t.moment_bins
+    first = cuda_transport.energy_moments(fwd_t.transport, rows, n_x, mbins)
+    again = cuda_transport.energy_moments(fwd_t.transport, rows, n_x, mbins)
+    cpu_t = simult_problem(spec_t, "poisson", "cpu").forward
+    on_cpu = cuda_transport.energy_moments(cpu_t.transport, rows[:16].cpu(),
+                                           n_x, cpu_t.moment_bins)
+    log(f"phase 12: table 'taylor' moment channels {tuple(first.shape)}: "
+        f"two calls equal {torch.equal(first, again)}, the first 16 rows "
+        f"equal to the CPU's {torch.equal(first[:16].cpu(), on_cpu)}")
+    require(torch.equal(first, again), "moment channels: two calls equal")
+    require(torch.equal(first[:16].cpu(), on_cpu),
+            "moment channels: the card's equal the CPU's bit for bit")
+    del first, again, on_cpu, e0, rows
+    torch.cuda.empty_cache()
+
+
+class _Tee(io.TextIOBase):
+    """Standard output, kept: what a CLI prints is shown and read back."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(module, argv, where, label):
+    """One in-process run of a CLI in ``where``; returns (result dict,
+    printed text, forward evaluations, launch counts), the counts set to 0
+    just before it and read just after.  A forward evaluation is a call
+    of the problem's ``run_spectra``: one per log-prob evaluation, and one
+    when the CLI synthesises its data."""
+    evals = [0]
+    run_spectra = problem_mod.JointFitProblem.run_spectra
+
+    def counted(self, *args, **kwargs):
+        evals[0] += 1
+        return run_spectra(self, *args, **kwargs)
+
+    cwd = os.getcwd()
+    tee = _Tee(sys.stdout)
+    problem_mod.JointFitProblem.run_spectra = counted
+    os.chdir(where)
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(tee):
+            out = module.main(argv)
+        torch.cuda.synchronize()
+        used = read_counts()
+    finally:
+        os.chdir(cwd)
+        problem_mod.JointFitProblem.run_spectra = run_spectra
+    log(f"{label}: {evals[0]} forward evaluations; launches {used}")
+    return out, tee.buf.getvalue(), evals[0], used
+
+
+CLI_FULL = ["-nWalkers", str(N_WALKERS), "-nDrawsPerEval", str(N_DRAWS),
+            "-move", "de", "-batch", "1", "-nBurninSteps", "4",
+            "-segment", "4"]
+CLI_RUNS = {
+    # name: (module, flags, dimension, K1 launches per evaluation)
+    "simult_counts_poisson": (cli_simult, ["-sampling", "counts",
+                                           "-likelihood", "poisson"], 8, 1),
+    "simult_mc_default": (cli_simult, [], 8, 0),
+    "onebd_hardcore_counts": (cli_onebd, ["-hardcore", "1", "-sampling",
+                                          "counts"], 9, 2),
+}
+
+
+def phase_cli(smi, tmp, rate, launches):
+    """Phase 13: the command-line drivers at full width on the card."""
+    for name, (module, flags, n_dim, k1_per_eval) in CLI_RUNS.items():
+        where = tmp / name
+        where.mkdir()
+        label = f"phase 13 ({name})"
+        out, text, evals, used = run_cli(
+            module, CLI_FULL + flags + ["-nMainSteps", "8"], where, label)
+        q = out["quantiles"]
+        require(len(q) == n_dim and all(np.all(np.isfinite(v))
+                                        for v in q.values()),
+                f"{label}: finite quantiles")
+        chain, probs, d, w, s = chain_io.read_chain_text(
+            str(where / "mainchain.dat"))
+        require(chain.shape == (8, N_WALKERS, n_dim),
+                f"{label}: mainchain.dat parses to (8, 256, {n_dim})")
+        rate_lines = [json.loads(line) for line in text.splitlines()
+                      if line.startswith('{"walker_steps_per_sec"')]
+        require(len(rate_lines) == 1 and rate_lines[0][
+            "walker_steps_per_sec"] == out["walker_steps_per_sec"],
+            f"{label}: the CLI printed its walker-steps/s")
+        require(used["tof_hist"] == evals and evals >= 2 + 2 * 12,
+                f"{label}: K2 launched once per forward evaluation")
+        require(used["poisson"] == k1_per_eval * evals,
+                f"{label}: K1 launched {k1_per_eval} times per evaluation")
+        require(used["weighted_hist"] == used["transport_moments"] == 0,
+                f"{label}: K3 and K4 are off the CLI's path")
+        rate[f"cli_{name}"] = out["walker_steps_per_sec"]
+        launches[f"cli_{name}"] = dict(used, forward_evaluations=evals)
+        log(f"{label} ({smi}): {out['walker_steps_per_sec']:.1f} "
+            f"walker-steps/s (the CLI's own line: 12 steps x {N_WALKERS} "
+            f"walkers over its phases, chain text and checkpoints "
+            f"included); main-chain log-probs finite "
+            f"{np.isfinite(probs).mean():.4f}")
+
+    where = tmp / "subprocess"
+    where.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mcmctoffitting_tpu_torch.cli.simult_fit",
+         "-debug", "1", "-batch", "1"], cwd=where, env=env,
+        capture_output=True, text=True, timeout=600)
+    log(f"phase 13: python -m mcmctoffitting_tpu_torch.cli.simult_fit "
+        f"-debug 1 -batch 1: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; last line "
+        f"{proc.stdout.strip().splitlines()[-1:]}")
+    require(proc.returncode == 0,
+            f"the CLI subprocess exits 0 ({proc.stderr[-2000:]})")
+
+
+def phase_resume(tmp):
+    """Phase 14: 4 + 4 main steps through -resume equal phase 13's 8."""
+    for name in ("simult_counts_poisson", "simult_mc_default"):
+        module, flags, _, _ = CLI_RUNS[name]
+        where = tmp / f"{name}_resumed"
+        where.mkdir()
+        label = f"phase 14 ({name})"
+        run_cli(module, CLI_FULL + flags + ["-nMainSteps", "4"], where,
+                label + ", burn-in 4 + main 4")
+        _, text, _, _ = run_cli(
+            module, CLI_FULL + flags + ["-nMainSteps", "4", "-resume",
+                                        "main.ckpt.npz"], where,
+            label + ", -resume for 4 more")
+        require("resumed from main.ckpt.npz at step 8" in text
+                and "fingerprint does not match" not in text
+                and "no torch generator states" not in text,
+                f"{label}: resumed at step 8 with its own generators")
+        whole = (tmp / name / "mainchain.dat").read_bytes()
+        resumed = (where / "mainchain.dat").read_bytes()
+        log(f"{label}: resumed mainchain.dat ({len(resumed)} bytes) equals "
+            f"the uninterrupted one byte for byte: {resumed == whole}")
+        require(resumed == whole,
+                f"{label}: resumed main chain byte-identical")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False "
@@ -985,6 +1183,14 @@ def main():
     torch.cuda.empty_cache()
     at_onebd = phase_onebd(dev, smi, rate, acc, launches)
 
+    # phases 12-14: deterministic moment sums, the command-line drivers,
+    # exact resume (before phase 11: see there)
+    torch.cuda.empty_cache()
+    phase_determinism(dev, p0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        phase_cli(smi, Path(tmp), rate, launches)
+        phase_resume(Path(tmp))
+
     # phase 11: the second cross-check of phase 6's device times, the kernel
     # durations torch.profiler reports for eager calls.  It comes last: once
     # the profiler has run in a process, every later launch costs the host
@@ -1042,7 +1248,10 @@ def main():
             # error, times and bound; their launches on that path
             "at_onebd_shapes": at_onebd.get(name),
             "launches_onebd_hardcore_counts":
-                launches["onebd_hardcore_counts"][name]})
+                launches["onebd_hardcore_counts"][name],
+            # launches during each command-line run of phase 13
+            "launches_cli": {run: launches[f"cli_{run}"][name]
+                             for run in CLI_RUNS}})
     print(json.dumps({"kernels": kernels, "walker_steps_per_s": rate,
                       "acceptance": acc, "launches_by_path": launches,
                       "onebd_a_build_seconds": at_onebd["a_build_seconds"]}))

@@ -1,0 +1,18 @@
+"""Console-script entry points (pyproject ``[project.scripts]``:
+``mcmctof-torch-simult-fit``, ``mcmctof-torch-csi-onebd``).
+
+Each CLI's ``main()`` returns its result dict so tests and library
+callers can assert on it; a console script ``sys.exit()``s the return
+value, where a dict would read as failure.  These wrappers run the CLI and
+discard the dict.
+"""
+
+
+def simult_fit() -> None:
+    from . import simult_fit as m
+    m.main()
+
+
+def csi_onebd() -> None:
+    from . import csi_onebd as m
+    m.main()

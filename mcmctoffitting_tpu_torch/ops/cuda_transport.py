@@ -15,12 +15,15 @@ import numpy as np
 import torch
 
 from .cuda_build import check, load_library
+from .fixed_point import channel_shifts, dequantise, quantise
 from .stopping import RK4Constants, rk4_transport
 
 _PLAIN_CHUNK = 1 << 24     # (rows x M x samples) elements per plain chunk
 # steps of the kernel's fixed-point d, d^2, d^3 sums (its counts are
 # integers; csrc/transport_moments.cu)
 KERNEL_STEPS = (2.0 ** -14, 2.0 ** -15, 2.0 ** -16)
+# bounds of the channels (1, d, d^2, d^3), |d| <= 1/2
+MOMENT_BOUNDS = (1.0, 0.5, 0.25, 0.125)
 
 
 class MomentBins(NamedTuple):
@@ -86,10 +89,15 @@ def energy_moments(transport, e0: torch.Tensor, n_x: int,
     """(R, N) initial energies -> (R, M, 4, n_bins) moment histograms of
     the energies ``transport(e0)`` (R, M, n) at the M = ``n_x`` depths: a
     ``scatter_add_`` of the channels over (depth, channel, bin) indices,
-    in chunks of samples."""
+    in chunks of samples.  The float32 channel values are summed as int64
+    fixed-point numbers (``ops/fixed_point``; |d| <= 1/2) and rounded to
+    float32 once, so the sums do not depend on the order of the additions:
+    the same on every call, and on the CPU and the GPU, for the same
+    energies."""
     n_rows, n = e0.shape
     nb = bins.n_bins
-    out = torch.zeros((n_rows, n_x * 4 * nb), dtype=torch.float32,
+    shifts = channel_shifts(max(1, n), MOMENT_BOUNDS)
+    out = torch.zeros((n_rows, n_x * 4 * nb), dtype=torch.int64,
                       device=e0.device)
     chunk = max(1, _PLAIN_CHUNK // max(1, n_rows * n_x))
     offs = (torch.arange(n_x, device=e0.device)[:, None, None] * 4
@@ -98,8 +106,8 @@ def energy_moments(transport, e0: torch.Tensor, n_x: int,
         e = transport(e0[:, start:start + chunk])             # (R, M, n_c)
         idx, chans = moment_channels(e, bins)                 # (R, M, n_c, 4)
         flat = (offs + idx[..., None]).reshape(n_rows, -1)
-        out.scatter_add_(1, flat, chans.reshape(n_rows, -1))
-    return out.reshape(n_rows, n_x, 4, nb)
+        out.scatter_add_(1, flat, quantise(chans, shifts).reshape(n_rows, -1))
+    return dequantise(out.reshape(n_rows, n_x, 4, nb), shifts, 2)
 
 
 def transport_moments_plain(e0: torch.Tensor, c: RK4Constants,

@@ -28,6 +28,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .fixed_point import channel_shifts, dequantise, quantise
+
+# bounds of the fine-cell channels (1, t, t^2, t^3) over [e0_lo, e0_hi]
+MOMENT_BOUNDS = (1.0, 1.0, 1.0, 1.0)
+
 
 def _eval_table_np(table, e0):
     """Host f64 stopping-table lookup (clip + Horner): (K,) -> (K, M)."""
@@ -241,8 +246,15 @@ def fine_cell_moments(grid: E0Grid, e0: torch.Tensor) -> torch.Tensor:
     base t^2 t over the samples of each cell, with cell =
     clip(floor((e0 - e0_lo) F / (e0_hi - e0_lo)), 0, F - 1), base = 1
     inside the closed range [e0_lo, e0_hi] and 0 outside (NaN included)
-    and t = (e0 - t_ref) / t_scale.  One float32 ``scatter_add_`` per
-    channel, for every F."""
+    and t = (e0 - t_ref) / t_scale.
+
+    The channel values are float32, as in the JAX package; each is summed
+    as an int64 fixed-point number (``ops/fixed_point``, |t| <= 1 in range
+    since t_ref and t_scale are the centre and half-width of [e0_lo,
+    e0_hi]) by one ``scatter_add_`` per channel, and the sums are rounded
+    to float32 once.  Integer sums do not depend on the order of the
+    additions, so the result is the same on every call, and on the CPU and
+    the GPU, for the same energies."""
     f = grid.n_fine
     lead, n = e0.shape[:-1], e0.shape[-1]
     rows = e0.reshape(-1, n)
@@ -254,11 +266,12 @@ def fine_cell_moments(grid: E0Grid, e0: torch.Tensor) -> torch.Tensor:
     base = in_range.to(rows.dtype)
     t = torch.where(in_range, (rows - grid.t_ref) * inv_tscale, 0.0)
     t2 = t * t
-    out = torch.zeros((4, rows.shape[0], f), dtype=rows.dtype,
+    shifts = channel_shifts(max(1, n), MOMENT_BOUNDS)
+    out = torch.zeros((4, rows.shape[0], f), dtype=torch.int64,
                       device=rows.device)
     for k, chan in enumerate((base, base * t, base * t2, base * t2 * t)):
-        out[k].scatter_add_(-1, idx, chan)
-    return out.movedim(0, 1).reshape(lead + (4, f))
+        out[k].scatter_add_(-1, idx, quantise(chan, shifts[k:k + 1]))
+    return dequantise(out, shifts, 0).movedim(0, 1).reshape(lead + (4, f))
 
 
 def _lognorm_w_machinery(beam_e, e_loss, scale, s):

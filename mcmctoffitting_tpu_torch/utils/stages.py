@@ -121,7 +121,7 @@ def _stages(problem, thetas, obs, gen):
               lambda: fwd.sample_beam_energies(params, gen))
         stage("e0 mean", "mean", lambda: torch.mean(out["e0"], dim=-1))
         if spec.xs_mode == "e0grid":
-            stage("fine-cell moments (scatter_add_)", "moments",
+            stage("fine-cell moments (int64 scatter_add_)", "moments",
                   lambda: fine_cell_moments(fwd.e0grid, out["e0"]))
             e0grid_tail("moments")
         else:

@@ -394,3 +394,57 @@ def test_poisson_kernel_on_background_rates(dev):
         z_mean = (x.mean() - rate) / np.sqrt(rate / m)
         z_var = (x.var() - rate) / np.sqrt((rate + 2 * rate * rate) / m)
         assert abs(z_mean) < 5 and abs(z_var) < 5, (rate, z_mean, z_var)
+
+
+def test_moment_sums_deterministic_and_equal_to_cpu(dev):
+    """The mc fine-cell moments (table, e0grid) and the table 'taylor'
+    moment channels sum in int64 fixed point: two calls on the card give
+    the same bits, and the CPU's on the same energies."""
+    from mcmctoffitting_tpu_torch.models import simult
+    from mcmctoffitting_tpu_torch.ops.e0grid import fine_cell_moments
+    problem = simult.SimultFitProblem(simult.default_spec(20_000),
+                                      n_runs=4, device=dev)
+    params = torch.tensor([[1878.4, 850.0, 170.0, 0.5]] * 8, device=dev)
+    e0 = problem.forward.sample_beam_energies(
+        params, torch.Generator().manual_seed(1))          # (8, 4, 20k)
+    grid = problem.forward.e0grid
+    first = fine_cell_moments(grid, e0)
+    assert torch.equal(first, fine_cell_moments(grid, e0))
+    cpu_grid = simult.SimultFitProblem(simult.default_spec(20_000),
+                                       n_runs=4, device="cpu").forward.e0grid
+    assert torch.equal(first.cpu(), fine_cell_moments(cpu_grid, e0.cpu()))
+
+    spec = simult.default_spec(20_000, xs_mode="taylor")
+    fwd = simult.SimultFitProblem(spec, n_runs=4, device=dev).forward
+    cpu_fwd = simult.SimultFitProblem(spec, n_runs=4, device="cpu").forward
+    rows = e0.reshape(-1, e0.shape[-1])
+    n_x = spec.x_binning.n
+    got = cuda_transport.energy_moments(fwd.transport, rows, n_x,
+                                        fwd.moment_bins)
+    assert torch.equal(got, cuda_transport.energy_moments(
+        fwd.transport, rows, n_x, fwd.moment_bins))
+    assert torch.equal(got.cpu(), cuda_transport.energy_moments(
+        cpu_fwd.transport, rows.cpu(), n_x, cpu_fwd.moment_bins))
+
+
+@pytest.mark.parametrize("flags", [["-sampling", "counts"], []],
+                         ids=["counts", "mc_default"])
+def test_cli_resume_exact_on_the_card(dev, flags, tmp_path, monkeypatch):
+    """simultFit on the card: 4 main steps equal 2 main steps, then
+    -resume for 2 more, byte for byte in mainchain.dat."""
+    from mcmctoffitting_tpu_torch.cli import simult_fit
+    argv = ["-nRuns", "2", "-nDrawsPerEval", "20000", "-nWalkers", "32",
+            "-nBurninSteps", "2", "-segment", "2", "-batch", "1"] + flags
+    chains = {}
+    for name, steps in (("a", [["-nMainSteps", "4"]]),
+                        ("b", [["-nMainSteps", "2"],
+                               ["-nMainSteps", "2", "-resume",
+                                "main.ckpt.npz"]])):
+        where = tmp_path / name
+        where.mkdir()
+        monkeypatch.chdir(where)
+        for extra in steps:
+            simult_fit.main(argv + extra)
+        chains[name] = (where / "mainchain.dat").read_bytes()
+    assert chains["a"] == chains["b"]
+    assert chains["a"].count(b"\n") == 4 * 32

@@ -44,6 +44,65 @@ def test_port_imports_without_jax_or_triton():
     assert int(proc.stdout.split()[-1]) >= 15      # every module imported
 
 
+NEW_MODULES = ("cli._driver", "cli._entry", "cli.simult_fit",
+               "cli.csi_onebd", "ops.fixed_point", "utils.chain_io",
+               "utils.diagnostics", "utils.data_io", "utils.native")
+
+
+def test_every_module_is_among_those_imported():
+    """The walk above reaches the drivers, chain I/O, diagnostics and the
+    native codec's bindings (which build nothing at import)."""
+    import pkgutil
+
+    import mcmctoffitting_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    assert {f"mcmctoffitting_tpu_torch.{m}" for m in NEW_MODULES} <= names
+
+
+_RUN_CLI = """
+import sys
+sys.modules['jax'] = None
+sys.modules['triton'] = None
+sys.modules['mcmctoffitting_tpu'] = None
+import runpy
+sys.argv = [{name!r}, '-device', 'cpu', '-quitEarly', '1',
+            '-nDrawsPerEval', '2000', '-fineGrid', '64']
+runpy.run_module({name!r}, run_name='__main__', alter_sys=True)
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and m.split('.')[0] in ('jax', 'jaxlib', 'triton',
+                                  'mcmctoffitting_tpu')]
+assert not loaded, loaded
+"""
+
+
+@pytest.mark.parametrize("cli", ["simult_fit", "csi_onebd"])
+def test_cli_entry_runs_without_the_jax_package(cli, tmp_path):
+    """``python -m mcmctoffitting_tpu_torch.cli.<cli>`` with jax and the
+    JAX package blocked: set-up on the CPU, then -quitEarly."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _RUN_CLI.format(name=f"mcmctoffitting_tpu_torch.cli.{cli}")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "quitEarly: setup complete" in proc.stdout
+
+
+def test_console_scripts_do_not_collide():
+    """pyproject names the port's two scripts beside the JAX package's."""
+    import tomllib
+    scripts = tomllib.loads((REPO / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    assert scripts["mcmctof-torch-simult-fit"] == \
+        "mcmctoffitting_tpu_torch.cli._entry:simult_fit"
+    assert scripts["mcmctof-torch-csi-onebd"] == \
+        "mcmctoffitting_tpu_torch.cli._entry:csi_onebd"
+    assert len(set(scripts)) == len(scripts) == 9
+    from mcmctoffitting_tpu_torch.cli import _entry
+    assert callable(_entry.simult_fit) and callable(_entry.csi_onebd)
+
+
 def test_kernel_modules_import_without_nvcc():
     proc = _run("import mcmctoffitting_tpu_torch.ops.cuda_poisson, "
                 "mcmctoffitting_tpu_torch.ops.cuda_tof, "
