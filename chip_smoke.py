@@ -78,8 +78,30 @@ Phases (any failure raises; the exit code is then non-zero):
  14. exact resume on the card: for simultFit counts and the mc default, 4
      burn-in + 4 main steps, then -resume main.ckpt.npz for 4 more, give
      phase 13's mainchain.dat byte for byte;
+ 15. K2's backward (the tof_hist_bwd kernel of the autograd Function
+     TofHistSegments) vs the float64 gather of the cotangent at each
+     sample's bin and vs the autograd of the plain version, at simultFit's
+     (256, 4, 10, 50) lattice with K = 10 and oneBD hardcore's (256, 3, 20,
+     400) with K = 1, each gradient within 1e-6 x sum_k |zw| x max|gbar|,
+     the same bits on a second call, the np.histogram edge cases exact;
+     its device time, bound and enqueue beside K2 forward's;
+ 16. the gradient of the differentiable log-prob ('expected', corrected
+     likelihood, no rint; oneBD with the background's expectation) on 8
+     chains at the fit's initial walkers, the card against the CPU:
+     simultFit (4 runs, F = 256) and oneBD (3 runs, 'expo'), relative L2
+     <= 1e-3 per chain with the float32 grid stage's values shared (the
+     whole gradient printed beside it: the float32 grid's own error sets
+     how far two devices' whole gradients can differ);
+ 17. the gradient samplers through the command-line drivers at full width
+     on the card, in process (256 chains, 200k draws, 'expected', -likelihood
+     poisson, -maxDepth 6, 10 warm-up + 10 main steps): simultFit -sampler
+     nuts and hmc, oneBD -sampler nuts -deterministicBG; finite quantiles,
+     mainchain.dat parsing back to (10, 256, D), the CLI's rate line, the
+     divergences and mean tree depth of NUTS, and K2 forward and backward
+     launched once per gradient evaluation (the forward once more for the
+     synthetic data), K1, K3 and K4 never;
  11. the second cross-check of phase 6: torch.profiler's kernel durations
-     of K1 and K2 beside the graph's (last, after phases 12-14, because a
+     of K1 and K2 beside the graph's (last, after phases 12-17, because a
      profiler that has run makes every later launch dearer for the host).
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
@@ -109,8 +131,9 @@ from mcmctoffitting_tpu_torch.ops import cuda_build, cuda_hist, cuda_transport
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
 from mcmctoffitting_tpu_torch.ops import e0grid, stopping
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import philox_cuda, poisson
-from mcmctoffitting_tpu_torch.ops.cuda_tof import (tof_hist_segments,
-                                                   tof_hist_segments_plain)
+from mcmctoffitting_tpu_torch.ops.cuda_tof import (
+    tof_hist_segments, tof_hist_segments_backward, tof_hist_segments_bwd_plain,
+    tof_hist_segments_plain)
 from mcmctoffitting_tpu_torch.utils import chain_io, data_io, devtime
 
 N_WALKERS, N_RUNS, N_DRAWS = 256, 4, 200_000
@@ -120,6 +143,7 @@ EXACT_WARM, EXACT_TIMED = 1, 2       # mc 'exact' configuration
 SHORT_WARM, SHORT_TIMED = 3, 10      # the default mc fits
 ONEBD_RUNS = 3
 ONEBD_WARM, ONEBD_TIMED = 20, 100    # oneBD hardcore counts fit
+GRAD_WARM, GRAD_MAIN, GRAD_DEPTH = 10, 10, 6   # gradient samplers' CLIs
 BG_LEVELS = (0.0, 0.5, 10.0, 1000.0)
 LAMS = (0.5, 5.0, 10.0, 100.0, 1.0e4, 2.0e5)
 # NVIDIA H100 SXM peaks (data sheet): HBM bytes/s and float32 FLOP/s
@@ -476,11 +500,13 @@ def reset_counts():
     for fn in (poisson, tof_hist_segments, cuda_hist.weighted_histogram,
                cuda_transport.transport_moments):
         fn.launches = 0
+    tof_hist_segments.backward_launches = 0
 
 
 def read_counts():
     return {"poisson": poisson.launches,
             "tof_hist": tof_hist_segments.launches,
+            "K2-bwd": tof_hist_segments.backward_launches,
             "weighted_hist": cuda_hist.weighted_histogram.launches,
             "transport_moments": cuda_transport.transport_moments.launches}
 
@@ -866,8 +892,9 @@ def phase_cli(smi, tmp, rate, launches):
                 f"{label}: K2 launched once per forward evaluation")
         require(used["poisson"] == k1_per_eval * evals,
                 f"{label}: K1 launched {k1_per_eval} times per evaluation")
-        require(used["weighted_hist"] == used["transport_moments"] == 0,
-                f"{label}: K3 and K4 are off the CLI's path")
+        require(used["weighted_hist"] == used["transport_moments"] == 0
+                and used["K2-bwd"] == 0,
+                f"{label}: K3, K4 and K2's backward are off the CLI's path")
         rate[f"cli_{name}"] = out["walker_steps_per_sec"]
         launches[f"cli_{name}"] = dict(used, forward_evaluations=evals)
         log(f"{label} ({smi}): {out['walker_steps_per_sec']:.1f} "
@@ -915,6 +942,273 @@ def phase_resume(tmp):
             f"the uninterrupted one byte for byte: {resumed == whole}")
         require(resumed == whole,
                 f"{label}: resumed main chain byte-identical")
+
+
+def k2_bwd_bound(base, zt, n_pad, n_in):
+    """K2 backward's bound: base and the cotangent read once, the gradient
+    written once (and the tables); per sample an addition and two
+    compares, per in-window sample the subtraction, scaling, floor, clamp,
+    product and sum."""
+    n_samples = base.numel() * zt.shape[1]
+    n_rows = base.numel() // (base.shape[-2] * base.shape[-1])
+    return bound(4 * (2 * base.numel() + n_rows * n_pad + 2 * zt.numel()),
+                 3 * n_samples + 6 * n_in)
+
+
+def k2_in_window(base, zt, win):
+    """Samples of the lattice in their run's window."""
+    vals = base[..., None] + zt
+    lo = win.lo[:, None, None, None]
+    hi = win.hi[:, None, None, None]
+    return ((vals >= lo) & (vals <= hi)).sum().item()
+
+
+def phase_tof_backward(dev, smi, base_s, draws_s, fwd_s):
+    """Phase 15: K2's backward at both fits' lattices (256 walkers).
+    Returns the kernels line's entry."""
+    spec_hc = onebd.default_spec(N_DRAWS, hardcore=True, sampling="counts")
+    prob_hc = onebd_problem(spec_hc, "poisson", dev)
+    obs = data_io.synthesize_observed(9, prob_hc, data_io.ONEBD_TRUTH)
+    p0 = prob_hc.initial_walkers_from_observed(
+        torch.Generator(dev).manual_seed(1), N_WALKERS, obs)
+    fwd_o = prob_hc.forward
+    grids, e0_means = fwd_o.grid_and_mean(prob_hc.split_theta(p0)[0],
+                                          torch.Generator().manual_seed(3))
+    base_o, draws_o = fwd_o.lattice(grids, e0_means)
+    cases = {"simult": (base_s, draws_s, fwd_s),
+             "onebd_hardcore": (base_o, draws_o, fwd_o)}
+    rng = np.random.default_rng(15)
+    floor_ms = devtime.launch_floor_ms(dev)
+    out = {}
+    for name, (base, draws, fwd) in cases.items():
+        zt, zw, win = fwd.zt, fwd.zw, fwd.win
+        gbar = torch.as_tensor(rng.standard_normal(
+            base.shape[:-2] + (win.n_pad,)).astype(np.float32), device=dev)
+        label = f"phase 15 ({name}, {tuple(base.shape)}, K = {zt.shape[1]})"
+        got = tof_hist_segments_backward(gbar, base, zt, zw, win)
+        again = tof_hist_segments_backward(gbar, base, zt, zw, win)
+        exact = tof_hist_segments_bwd_plain(gbar, base, zt, zw, win,
+                                            torch.float64)
+        tol = 1e-6 * zw.abs().sum(1).max().item() * gbar.abs().max().item()
+        err64 = (got.double() - exact).abs().max().item()
+        d = draws.detach().clone().requires_grad_(True)
+        plain_out = tof_hist_segments_plain(base, d, zt, zw, win)
+        want, = torch.autograd.grad(plain_out, d, gbar, retain_graph=True)
+        err = (got - want).abs().max().item()
+        log(f"{label}: backward kernel vs the float64 gather max|diff| "
+            f"{err64:.3g}, vs the plain autograd {err:.3g} (tolerance "
+            f"{tol:.3g}); a second call equal: {torch.equal(got, again)}")
+        require(err64 <= tol and err <= tol,
+                f"{label}: K2 backward vs plain within {tol:.3g}")
+        require(torch.equal(got, again), f"{label}: K2 backward the same "
+                "on every call")
+
+        # np.histogram edge cases, exact: v == hi -> the last bin's
+        # cotangent, v == lo -> the first's, outside and NaN -> nothing
+        e_base = torch.full_like(base[:1], 1.0e4)
+        e_zt = torch.zeros_like(zt)
+        e_zw = torch.zeros_like(zw)
+        e_zw[:6, 0] = torch.tensor([1.0, 2.0, 4.0, 8.0, 16.0, 32.0])
+        for r in range(base.shape[1]):
+            lo, hi = win.lo[r].item(), win.hi[r].item()
+            e_base[0, r, 0, :6] = torch.tensor(
+                [hi, hi + 0.5, lo, lo - 0.5, float("nan"), lo + 1.5])
+        e_g = torch.arange(1.0, 1.0 + base.shape[1] * win.n_pad,
+                           device=dev).reshape(1, base.shape[1], win.n_pad)
+        e_got = tof_hist_segments_backward(e_g, e_base, e_zt, e_zw, win)
+        require(torch.equal(e_got, tof_hist_segments_bwd_plain(
+            e_g, e_base, e_zt, e_zw, win)), f"{label}: K2 backward "
+            "np.histogram edge cases")
+        require(bool(e_got[0, :, 0, 0].eq(
+            e_g[0, torch.arange(base.shape[1]), win.nb1.long()]).all()),
+            f"{label}: v == hi takes the last bin's cotangent")
+        log(f"{label}: backward edge cases exact (v == hi, v == lo, "
+            "outside, NaN)")
+
+        def bwd_call():
+            return tof_hist_segments_backward(gbar, base, zt, zw, win)
+
+        def fwd_call():
+            return tof_hist_segments(base, draws, zt, zw, win)
+
+        def plain_bwd():
+            return torch.autograd.grad(plain_out, d, gbar,
+                                       retain_graph=True)
+
+        ms = devtime.graphs_in_turns({"bwd": bwd_call, "fwd": fwd_call})
+        enq = {"bwd": devtime.enqueue_us(bwd_call),
+               "fwd": devtime.enqueue_us(fwd_call)}
+        plain_ms = cuda_ms(plain_bwd)
+        n_in = k2_in_window(base, zt, win)
+        b_ms, b_by = k2_bwd_bound(base, zt, win.n_pad, n_in)
+        f_ms, f_by = bound(4 * (2 * base.numel() + 2 * zt.numel()
+                                + base.shape[0] * base.shape[1] * win.n_pad),
+                           4 * base.numel() * zt.shape[1] + 5 * n_in)
+        log(f"{label} ({smi}): backward kernel {ms['bwd']:.5f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}), enqueue {enq['bwd']:.1f} us, plain "
+            f"(autograd of the plain version) {plain_ms:.4f} ms, library "
+            f"none; forward kernel {ms['fwd']:.5f} ms, bound {f_ms:.5f} ms "
+            f"({f_by}), enqueue {enq['fwd']:.1f} us; launch floor "
+            f"{floor_ms:.5f} ms; in-window share "
+            f"{n_in / (base.numel() * zt.shape[1]):.4f}")
+        out[name] = {"shape": list(base.shape), "k": zt.shape[1],
+                     "ms": ms["bwd"], "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None, "enqueue_us": enq["bwd"],
+                     "launch_floor_ms": floor_ms,
+                     "max_abs_err": max(err64, err),
+                     "forward_ms": ms["fwd"], "forward_bound_ms": f_ms,
+                     "forward_enqueue_us": enq["fwd"]}
+        del got, again, exact, want, plain_out, d
+    del base_o, draws_o, prob_hc, fwd_o
+    torch.cuda.empty_cache()
+    return out
+
+
+def grad_problems(dev):
+    """The differentiable configuration of both fits ('expected', rint
+    off, the corrected likelihood; oneBD with the background's
+    expectation): name -> (make_problem(device), truth)."""
+    spec_s = dataclasses.replace(
+        simult.default_spec(N_DRAWS, sampling="expected"), rint_draws=False)
+    spec_o = dataclasses.replace(
+        onebd.default_spec(N_DRAWS, sampling="expected"), rint_draws=False,
+        bg_mode="expected")
+    truth_s = np.concatenate([simult.GUESS_SHARED, np.full(N_RUNS, 5.0e4)])
+    return {
+        "simult": (lambda d: simult_problem(spec_s, "poisson", d), truth_s),
+        "onebd": (lambda d: onebd_problem(spec_o, "poisson", d),
+                  data_io.ONEBD_TRUTH)}
+
+
+def share_grid(gpu_problem, cpu_problem):
+    """Make ``gpu_problem``'s forward use the CPU forward's float32 grid
+    and e0 means (the values; the gradient is still the card's own, of
+    its own grid stage): what is left between the two gradients is what
+    the card computes after the grid stage, kernel K2 forward and backward
+    among it, and the grid stage's float64 backward."""
+    fwd_g, fwd_c = gpu_problem.forward, cpu_problem.forward
+    own = fwd_g.grid_and_mean
+
+    def grid_and_mean(params, generator):
+        grids, means = own(params, generator)
+        with torch.no_grad():
+            c_grids, c_means = fwd_c.grid_and_mean(params.cpu(), generator)
+        return (grids + (c_grids.to(grids.device) - grids).detach(),
+                means + (c_means.to(means.device) - means).detach())
+
+    fwd_g.grid_and_mean = grid_and_mean
+
+
+def phase_gradient(dev):
+    """Phase 16: the log-prob's gradient on 8 chains, card vs CPU, at the
+    first 8 points of the fit's initial-walker cloud, where the CLI's
+    chains start.  The float32 'expected' grid carries an error of ~1e-4
+    of its peak in every cell (on both devices, independently; half the
+    cells of a grid are off by more than 1e-3 of their own value), which
+    the likelihood's gradient weights by obs / rate: against the float64
+    gradient the float32 one is off by a median 3e-5 and up to several
+    percent (perf/gradient_precision.py).  So the card is held to the CPU
+    at 1e-3 with the grid stage's values shared, and the whole gradient is
+    printed beside it."""
+    rel = {}
+    for name, (make, truth) in grad_problems(dev).items():
+        cpu = make("cpu")
+        obs = data_io.synthesize_observed(9, cpu, truth)
+        thetas = cpu.initial_walkers_from_observed(
+            torch.Generator().manual_seed(1), 8, obs)
+        shared = make(dev)
+        share_grid(shared, cpu)
+        grads = {}
+        for tag, prob in (("cpu", cpu), ("card", make(dev)),
+                          ("card_shared_grid", shared)):
+            x = thetas.to(prob.device).requires_grad_(True)
+            lp = prob.make_log_prob_fn(obs)(x, torch.Generator())
+            g, = torch.autograd.grad(lp.sum(), x)
+            require(bool(torch.isfinite(lp).all()
+                         and torch.isfinite(g).all()),
+                    f"phase 16 ({name}, {tag}): finite log-probs, gradients")
+            grads[tag] = g.cpu().double()
+        for tag in ("card", "card_shared_grid"):
+            r = ((grads[tag] - grads["cpu"]).norm(dim=1)
+                 / grads["cpu"].norm(dim=1))
+            rel[f"{name}_{tag}"] = r.tolist()
+            what = (" with the CPU grid stage values" if "shared" in tag
+                    else "")
+            log(f"phase 16 ({name}): log-prob gradient on 8 chains, the card"
+                f"{what} vs the CPU: relative L2 per chain "
+                f"{' '.join(f'{v:.2e}' for v in r.tolist())}")
+        require(max(rel[f"{name}_card_shared_grid"]) <= 1e-3,
+                f"phase 16 ({name}): gradient GPU vs CPU, grid values shared")
+    return rel
+
+
+GRAD_CLI = ["-nChains", str(N_WALKERS), "-nDrawsPerEval", str(N_DRAWS),
+            "-nBurninSteps", str(GRAD_WARM), "-nMainSteps", str(GRAD_MAIN),
+            "-maxDepth", str(GRAD_DEPTH), "-expectedForward", "-likelihood",
+            "poisson", "-batch", "1"]
+GRAD_RUNS = {
+    # name: (module, flags, dimension)
+    "simult_nuts": (cli_simult, ["-sampler", "nuts"], 8),
+    "simult_hmc": (cli_simult, ["-sampler", "hmc"], 8),
+    "onebd_nuts": (cli_onebd, ["-sampler", "nuts", "-deterministicBG"], 9),
+}
+
+
+def phase_gradient_cli(smi, tmp, rate, launches):
+    """Phase 17: the gradient samplers through the CLIs at full width."""
+    for name, (module, flags, n_dim) in GRAD_RUNS.items():
+        where = tmp / f"grad_{name}"
+        where.mkdir()
+        label = f"phase 17 ({name})"
+        out, text, evals, used = run_cli(module, GRAD_CLI + flags, where,
+                                         label)
+        q = out["quantiles"]
+        require(len(q) == n_dim and all(np.all(np.isfinite(v))
+                                        for v in q.values()),
+                f"{label}: finite quantiles")
+        chain, probs, _, _, _ = chain_io.read_chain_text(
+            str(where / "mainchain.dat"))
+        require(chain.shape == (GRAD_MAIN, N_WALKERS, n_dim),
+                f"{label}: mainchain.dat parses to ({GRAD_MAIN}, "
+                f"{N_WALKERS}, {n_dim})")
+        rate_lines = [json.loads(line) for line in text.splitlines()
+                      if line.startswith('{"walker_steps_per_sec"')]
+        require(len(rate_lines) == 1 and rate_lines[0][
+            "walker_steps_per_sec"] == out["walker_steps_per_sec"],
+            f"{label}: the CLI printed its walker-steps/s")
+        sampler_name = flags[1]
+        stats = [line for line in text.splitlines()
+                 if line.startswith(f"{sampler_name}: step_size")]
+        grad_lines = [line for line in text.splitlines()
+                      if " gradient evaluations of " in line]
+        require(len(stats) == 1 and len(grad_lines) == 1,
+                f"{label}: the sampler's statistics printed")
+        if sampler_name == "nuts":
+            require("mean tree depth" in stats[0]
+                    and "divergences" in stats[0],
+                    f"{label}: divergences and mean tree depth printed")
+        n_grad = int(grad_lines[0].split()[1])
+        # one K2 forward and one backward per gradient evaluation; the
+        # synthetic data take one more forward, without a gradient
+        require(used["K2-bwd"] == n_grad and used["tof_hist"] == n_grad + 1
+                and evals == n_grad + 1,
+                f"{label}: K2 forward and backward once per gradient "
+                f"evaluation ({used}, {n_grad} evaluations)")
+        require(used["poisson"] == used["weighted_hist"]
+                == used["transport_moments"] == 0,
+                f"{label}: K1, K3 and K4 are off the gradient path")
+        elapsed = rate_lines[0]["elapsed_s"]
+        rate[f"cli_{name}"] = out["walker_steps_per_sec"]
+        rate[f"cli_{name}_grad_evals_per_s"] = n_grad / elapsed
+        launches[f"cli_{name}"] = dict(used, forward_evaluations=evals,
+                                       gradient_evaluations=n_grad)
+        log(f"{label} ({smi}): {out['walker_steps_per_sec']:.1f} "
+            f"walker-steps/s (the CLI's own line: {GRAD_WARM + GRAD_MAIN} "
+            f"steps x {N_WALKERS} chains), {n_grad} gradient evaluations in "
+            f"{elapsed:.2f} s ({n_grad / elapsed:.1f} per second); "
+            f"{stats[0]}; main-chain log-probs finite "
+            f"{np.isfinite(probs).mean():.4f}")
 
 
 def main():
@@ -1191,6 +1485,14 @@ def main():
         phase_cli(smi, Path(tmp), rate, launches)
         phase_resume(Path(tmp))
 
+    # phases 15-17: K2's backward, the log-prob's gradient, the gradient
+    # samplers through the CLIs (before phase 11 too)
+    torch.cuda.empty_cache()
+    k2_bwd = phase_tof_backward(dev, smi, base, draws, forward)
+    grad_rel = phase_gradient(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grad_") as tmp:
+        phase_gradient_cli(smi, Path(tmp), rate, launches)
+
     # phase 11: the second cross-check of phase 6's device times, the kernel
     # durations torch.profiler reports for eager calls.  It comes last: once
     # the profiler has run in a process, every later launch costs the host
@@ -1249,9 +1551,31 @@ def main():
             "at_onebd_shapes": at_onebd.get(name),
             "launches_onebd_hardcore_counts":
                 launches["onebd_hardcore_counts"][name],
-            # launches during each command-line run of phase 13
+            # launches during each command-line run of phases 13 and 17
             "launches_cli": {run: launches[f"cli_{run}"][name]
-                             for run in CLI_RUNS}})
+                             for run in (*CLI_RUNS, *GRAD_RUNS)}})
+    # K2's backward: its time, bound and error at simultFit's lattice, the
+    # oneBD hardcore lattice beside it; its launches on this slice's main
+    # path, the gradient samplers' CLI runs
+    bwd = k2_bwd["simult"]
+    kernels.append({
+        "name": "K2-bwd", "route": "cuda",
+        "source": "mcmctoffitting_tpu_torch/csrc/tof_hist.cu",
+        "replaces": "mcmctoffitting_tpu/ops/pallas_tof.py:246",
+        "launches": launches["cli_simult_nuts"]["K2-bwd"],
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": None,
+        "enqueue_us": bwd["enqueue_us"],
+        "launch_floor_ms": bwd["launch_floor_ms"],
+        "shape": bwd["shape"], "forward_ms": bwd["forward_ms"],
+        "at_onebd_shapes": k2_bwd["onebd_hardcore"],
+        "launches_gradient_cli": {run: launches[f"cli_{run}"]["K2-bwd"]
+                                  for run in GRAD_RUNS},
+        "gradient_evaluations_cli": {
+            run: launches[f"cli_{run}"]["gradient_evaluations"]
+            for run in GRAD_RUNS},
+        "gradient_gpu_vs_cpu_rel_l2": grad_rel})
     print(json.dumps({"kernels": kernels, "walker_steps_per_s": rate,
                       "acceptance": acc, "launches_by_path": launches,
                       "onebd_a_build_seconds": at_onebd["a_build_seconds"]}))

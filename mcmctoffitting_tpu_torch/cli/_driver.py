@@ -1,5 +1,6 @@
 """Shared plumbing of the two flagship command-line fits: the flags, the
-phase loop, checkpoints with exact resume, and the reports.
+phase loop, checkpoints with exact resume, the gradient samplers' path
+(``-sampler nuts|hmc``) and the reports.
 
 Port of ``mcmctoffitting_tpu/cli/_driver.py``.  Both drivers stream chain
 segments to the emcee text file, checkpoint after each phase and report
@@ -10,8 +11,7 @@ the device, the host generator that seeds the log-prob's draws, and one
 each for the synthetic data, the initial walkers and the likelihood check.
 Flags that only chose a TPU/XLA schedule or the JAX PRNG (``-runAxis``,
 ``-prng``) are accepted with a note; features of later slices of the port
-(``-sampler nuts|hmc``, ``-mesh`` > 1, ``-profile``) raise
-``models.forward.not_ported``.
+(``-mesh`` > 1, ``-profile``) raise ``models.forward.not_ported``.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ import torch
 
 from ..models.forward import not_ported, resolve_device
 from ..ops.likelihoods import poisson_binned_terms, poisson_logpmf_terms
-from ..sampler import EnsembleState, init_state, run_mcmc
+from ..sampler import (BoxLogitTransform, EnsembleState, hmc_sample,
+                       init_state, nuts_sample, run_mcmc)
 from ..utils import chain_io
 from ..utils.diagnostics import (chain_summary, format_summary,
                                  integrated_autocorr_time)
@@ -396,10 +397,17 @@ def add_common_flags(p, refs: dict) -> None:
                         "the correct Poisson logpmf")
     p.add_argument("-sampler", choices=["ensemble", "nuts", "hmc"],
                    default="ensemble",
-                   help="ensemble (default); nuts / hmc are a later slice "
-                        "of the port")
+                   help="ensemble: Goodman-Weare stretch (reference "
+                        "semantics).  nuts / hmc: GRADIENT-based sampling "
+                        "of the differentiable configuration — requires "
+                        "-expectedForward -likelihood poisson (oneBD also "
+                        "-deterministicBG); impossible in the reference "
+                        "(MC + sawtooth likelihood).  Writes the same "
+                        "chain format")
     p.add_argument("-nChains", default=4, type=int,
-                   help="parallel chains for -sampler nuts/hmc")
+                   help="parallel chains for -sampler nuts/hmc "
+                        "(batched on the device; -nWalkers governs "
+                        "ensemble mode)")
     p.add_argument("-maxDepth", default=8, type=int,
                    help="NUTS maximum tree doublings per step")
     p.add_argument("-momentClosure", choices=["exact", "cell"],
@@ -430,8 +438,6 @@ def add_common_flags(p, refs: dict) -> None:
 def common_setup(args) -> torch.device:
     """The device of the fit; notes for the flags that have no effect
     here, and ``not_ported`` for the features of later slices."""
-    if args.sampler != "ensemble":
-        raise not_ported(f"-sampler {args.sampler}", "slice 6")
     if args.mesh > 1:
         raise not_ported(f"-mesh {args.mesh} (more than one GPU)",
                          "slice 8")
@@ -465,6 +471,105 @@ def build_logp_batch(logp, args):
                           for i in range(0, thetas.shape[0], chunk)])
 
     return logp_batch
+
+
+def resolve_gradient_spec(args, spec):
+    """Validate and finalise the spec for ``-sampler nuts|hmc``.
+
+    Gradient-based sampling needs the differentiable configuration: the
+    closed-form expected forward (the MC estimators re-draw per eval), the
+    corrected Poisson logpmf (the reference's int()-cast sawtooth has zero
+    gradient almost everywhere), the background's expectation for oneBD,
+    and ``rint_draws`` off (rint has zero gradient).  The first three are
+    the user's choices and are required, with the JAX package's messages;
+    rint has no flag and is turned off here with a note.
+    """
+    import dataclasses
+
+    if args.sampler == "ensemble":
+        return spec
+    if spec.sampling != "expected":
+        sys.exit(f"error: -sampler {args.sampler} requires the closed-form "
+                 "forward (-expectedForward / -sampling expected) — the "
+                 "gradient flows only through it; the MC estimators "
+                 "re-draw per eval")
+    if args.likelihood != "poisson":
+        sys.exit(f"error: -sampler {args.sampler} requires -likelihood "
+                 "poisson (the reference's int()-cast likelihood has zero "
+                 "gradient almost everywhere)")
+    if args.resume:
+        sys.exit(f"error: -resume is not supported with -sampler "
+                 f"{args.sampler} (ensemble checkpoints only)")
+    if spec.bg_mode != "expected" and getattr(args, "deterministicBG",
+                                              True) is False:
+        sys.exit(f"error: -sampler {args.sampler} requires "
+                 "-deterministicBG (the per-eval Poisson background draw "
+                 "is discrete)")
+    print(f"-sampler {args.sampler}: rint draw rounding disabled "
+          "(zero-gradient op; the forward stays the exact closed form)")
+    return dataclasses.replace(spec, rint_draws=False)
+
+
+def run_gradient_sampler(args, problem, observed, *, names):
+    """``-sampler nuts|hmc``: gradient-based sampling of the flagship
+    posterior (see :func:`resolve_gradient_spec`), ``-nChains`` chains
+    batched on the device, each gradient one backward through the
+    'expected' forward (kernel K2's backward on the card).
+
+    Chains run in box-logit coordinates (``sampler/transforms.py``: the
+    prior box's faces at infinity, O(1) per-dimension scale) from the
+    problem's initial-walker law; NUTS also adapts a diagonal metric during
+    warm-up (``-nBurninSteps``, 10 with ``-debug``).  The main chain lands
+    in ``mainchain.dat`` in the ensemble path's format, then the
+    diagnostics, the quantiles and the rate line, (warm-up + main steps) x
+    chains over the sampling's wall clock, as in the JAX package.
+    """
+    device = problem.device
+    logp_full = problem.make_log_prob_fn(observed)
+    # the differentiable configuration draws nothing from it
+    eval_generator = seeded_generator(args.seed, STREAM_EVAL)
+    n_chains = args.nChains
+    tr = BoxLogitTransform(problem.param_lo, problem.param_hi, device=device)
+    logp_u = tr.wrap_logp(lambda theta: logp_full(theta, eval_generator))
+    cloud = problem.initial_walkers_from_observed(
+        seeded_generator(args.seed, STREAM_WALKERS, device),
+        max(256, n_chains), observed)
+    n_warmup = 10 if args.debug else args.nBurninSteps
+    n_steps = 10 if args.debug else args.nMainSteps
+    p0 = tr.to_u(cloud[:n_chains])
+    print(f"{args.sampler}: {n_chains} chains x {n_warmup} warmup "
+          f"+ {n_steps} steps (box-logit coordinates)")
+    generator = seeded_generator(args.seed, STREAM_MOVES, device)
+    t0 = time.time()
+    if args.sampler == "nuts":
+        chain = nuts_sample(generator, p0, n_steps, logp_u,
+                            n_warmup=n_warmup, max_depth=args.maxDepth)
+        accept = chain.accept_stat
+        n_div = int(torch.sum(chain.diverging))
+        extra = (f"nuts: step_size {chain.step_size:.4g}, mean tree depth "
+                 f"{float(torch.mean(chain.tree_depth.float())):.1f}, "
+                 f"divergences {n_div}/{accept.numel()}")
+    else:
+        chain = hmc_sample(generator, p0, n_steps, logp_u,
+                           n_warmup=n_warmup)
+        accept = chain.accept_prob
+        extra = f"hmc: step_size {chain.step_size:.4g}"
+    positions = tr.to_theta(chain.positions).cpu().numpy()
+    log_probs = chain.log_probs.cpu().numpy()
+    elapsed = time.time() - t0
+    print(f"{extra}, mean accept stat {float(torch.mean(accept)):.2f}")
+    print(f"{args.sampler}: {chain.n_grad_evals} gradient evaluations of "
+          f"{chain.n_chain_grads} chain gradients in {elapsed:.2f} s "
+          f"({chain.n_grad_evals / elapsed:.1f} per second)")
+
+    path = args.outputPrefix + "mainchain.dat"
+    open(path, "w").close()
+    chain_io.append_chain_text(path, positions, log_probs)
+    _print_diagnostics("main", path)
+    result = report_quantiles(positions.reshape(-1, len(names)), names)
+    rate = (n_warmup + n_steps) * n_chains / elapsed
+    print(json.dumps({"walker_steps_per_sec": rate, "elapsed_s": elapsed}))
+    return {"quantiles": result, "walker_steps_per_sec": rate}
 
 
 def fit_phases(args, problem, observed, logp_batch, *, n_walkers: int,

@@ -47,7 +47,7 @@ def sizes(args):
 def build_problem(args, device):
     """The fit's problem from the flags (the JAX CLI's preset choices)."""
     from ..models import simult
-    from ._driver import resolve_sampling
+    from ._driver import resolve_gradient_spec, resolve_sampling
 
     sampling, fine_grid = resolve_sampling(args)
     spec = simult.default_spec(
@@ -58,6 +58,7 @@ def build_problem(args, device):
     if args.momentClosure != "exact" or args.aDtype:
         spec = dataclasses.replace(spec, moment_closure=args.momentClosure,
                                    a_dtype=args.aDtype or spec.a_dtype)
+    spec = resolve_gradient_spec(args, spec)
     return simult.SimultFitProblem(spec, n_runs=args.nRuns,
                                    likelihood=args.likelihood, device=device)
 
@@ -68,7 +69,8 @@ def main(argv=None) -> dict:
     from ..utils import data_io
     from ._driver import (STREAM_CHECK, STREAM_DATA, build_logp_batch,
                           check_likelihood_eval, common_setup, fit_phases,
-                          seeded_generator, stream_seed)
+                          run_gradient_sampler, seeded_generator,
+                          stream_seed)
 
     device = common_setup(args)
     n_walkers, burnin_steps, main_steps, _ = sizes(args)
@@ -99,6 +101,8 @@ def main(argv=None) -> dict:
 
     names = ["beamE", "eLoss", "scale", "s"] + [
         f"N{i + 1}" for i in range(args.nRuns)]
+    if args.sampler != "ensemble":
+        return run_gradient_sampler(args, problem, observed, names=names)
     logp_batch = build_logp_batch(problem.make_log_prob_fn(observed), args)
     return fit_phases(args, problem, observed, logp_batch,
                       n_walkers=n_walkers, burnin_steps=burnin_steps,

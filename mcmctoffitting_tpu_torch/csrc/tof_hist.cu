@@ -1,10 +1,12 @@
 // Kernel K2: zero-degree-segment TOF histograms of the forward model.
 //
 // Replaces the TPU kernel mcmctoffitting_tpu/ops/pallas_tof.py::_tof_kernel
-// (pl.pallas_call at :127).  Plain PyTorch version: the expand-then-
-// histogram path in mcmctoffitting_tpu_torch/ops/cuda_tof.py::
-// tof_hist_segments_plain.  Wrapper and dispatch: ops/cuda_tof.py::
-// tof_hist_segments.
+// (pl.pallas_call at :127) and its custom VJP's backward _fn_bwd (:246).
+// Plain PyTorch version: the expand-then-histogram path in
+// mcmctoffitting_tpu_torch/ops/cuda_tof.py::tof_hist_segments_plain and its
+// autograd.  Wrapper and dispatch: ops/cuda_tof.py::tof_hist_segments (the
+// forward, and the torch.autograd.Function TofHistSegments whose backward
+// launches tof_hist_bwd_kernel below).
 //
 // What it computes, per (walker, run) row: the M * Be lattice cells, each
 // spread over the K zero-degree segments, give M * Be * K samples
@@ -131,6 +133,19 @@ __device__ __forceinline__ int rounded_int(float sum) {
 __device__ __forceinline__ int floor_to_int(float x) {   // 0 <= x < 2^22
   return __float_as_int(__fadd_rd(x, kRoundMagic)) - kRoundMagicBits;
 }
+
+// The bin of a sample time v in a run's window, -1 where np.histogram drops
+// it: counted only when lo <= v <= hi (NaN fails both tests), then
+// min(floor((v - lo) * scale), n_bins - 1), so v == hi lands in the last
+// bin.  In the window 0 <= (v - lo) * scale <= n_bins (1 + 2^-23), far
+// below 2^22, where floor_to_int is exact.  Both forward kernels and the
+// backward kernel bin through this one function, so the backward gathers
+// the cotangent of the very bin the forward added each sample to.
+__device__ __forceinline__ int tof_bin(float v, float lo, float hi,
+                                       float scale, int nb1) {
+  if (!(v >= lo && v <= hi)) return -1;
+  return min(floor_to_int((v - lo) * scale), nb1);
+}
 constexpr int kGeneralThreads = 256;
 constexpr size_t kSmemNoOptIn = 48 * 1024;
 constexpr size_t kSmemOptIn = 226 * 1024;   // 227 KB less the static part
@@ -208,10 +223,7 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm)
       for (int k = 0; k < n_seg; ++k) {
         const float v = t0 + cell_zt[k * n_ed];
         const float w = n_draws * cell_zw[k * n_ed];
-        int bin = -1;
-        if (v >= lo && v <= hi) {     // so (v - lo) * scale >= 0
-          bin = min(floor_to_int((v - lo) * scale), nb1);
-        }
+        const int bin = tof_bin(v, lo, hi, scale, nb1);
         const float fixed = w * to_fixed;        // exact: a power of two
         const float whole = round_in_place(fixed);
         const int w_hi = rounded_int(whole);
@@ -277,16 +289,65 @@ __global__ void tof_hist_general_kernel(
     const int cell = static_cast<int>(s / n_seg);
     const int seg = static_cast<int>(s - static_cast<long long>(cell) * n_seg);
     const int tab = seg * n_ed + cell % n_ed;
-    const float v = row_base[cell] + zt_t[tab];
-    if (v >= lo && v <= hi) {
-      int idx = static_cast<int>(floorf((v - lo) * scale));
-      idx = min(max(idx, 0), nb1);
-      atomicAdd(&hist[idx], row_draws[cell] * zw_t[tab]);
-    }
+    const int idx = tof_bin(row_base[cell] + zt_t[tab], lo, hi, scale, nb1);
+    if (idx >= 0) atomicAdd(&hist[idx], row_draws[cell] * zw_t[tab]);
   }
   __syncthreads();
   float* row_out = out + static_cast<long long>(row) * n_pad;
   for (int j = threadIdx.x; j < n_pad; j += blockDim.x) row_out[j] = hist[j];
+}
+
+// The backward of the histogram (the custom VJP's _fn_bwd): the output is
+// linear in the draws, and a sample's bin has zero gradient almost
+// everywhere, so
+//   grad_draws[m, b] = sum_k zw[b, k] * gbar[bin(base[m, b] + zt[b, k])]
+// over the in-window samples, and nothing flows to base, zt or zw.  One
+// block per (walker, run) row, the row's cotangent staged in shared memory
+// (n_pad floats; read from device memory where a window is too wide for a
+// block), one thread per lattice cell summing its K segments in order in
+// float32.  A gather: no atomics, the same bits on every call.  Bound by
+// bytes: base and the cotangent read once, the gradient written once (the
+// tables stay in L1).
+__global__ void __launch_bounds__(kMaxThreads)
+    tof_hist_bwd_kernel(const float* __restrict__ gbar,
+                        const float* __restrict__ base,
+                        const float* __restrict__ zt_t,
+                        const float* __restrict__ zw_t,
+                        const float* __restrict__ win_lo,
+                        const float* __restrict__ win_hi,
+                        const float* __restrict__ win_scale,
+                        const int* __restrict__ win_nb1,
+                        float* __restrict__ grad, const FastDiv runs,
+                        int n_cells, const FastDiv ed, int n_seg, int n_pad,
+                        bool stage) {
+  extern __shared__ float s_g[];
+  const int n_ed = static_cast<int>(ed.d);
+  const int row = blockIdx.x;
+  const int run = static_cast<int>(runs.mod(row));
+  const float lo = win_lo[run];
+  const float hi = win_hi[run];
+  const float scale = win_scale[run];
+  const int nb1 = win_nb1[run];
+  const float* row_g = gbar + static_cast<long long>(row) * n_pad;
+  const float* g = row_g;   // a generic pointer: shared or device memory
+  if (stage) {
+    for (int j = threadIdx.x; j < n_pad; j += blockDim.x) s_g[j] = row_g[j];
+    __syncthreads();
+    g = s_g;
+  }
+  const float* row_base = base + static_cast<long long>(row) * n_cells;
+  float* row_grad = grad + static_cast<long long>(row) * n_cells;
+  for (int cell = threadIdx.x; cell < n_cells; cell += blockDim.x) {
+    const float t0 = row_base[cell];
+    const float* cell_zt = zt_t + ed.mod(cell);
+    const float* cell_zw = zw_t + ed.mod(cell);
+    float acc = 0.0f;
+    for (int k = 0; k < n_seg; ++k) {
+      const int bin = tof_bin(t0 + cell_zt[k * n_ed], lo, hi, scale, nb1);
+      if (bin >= 0) acc += cell_zw[k * n_ed] * g[bin];
+    }
+    row_grad[cell] = acc;
+  }
 }
 
 // Shared memory of the fast kernel, 0 where it cannot serve: too many bins
@@ -365,5 +426,40 @@ extern "C" int mcmctof_tof_hist(const float* base, const float* draws,
         base, draws, zt_t, zw_t, lo, hi, scale, nb1, out, n_runs, n_cells,
         n_ed, n_seg, n_pad);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward: gbar (n_rows, n_pad), base (n_rows, n_cells) -> grad
+// (n_rows, n_cells), the tables and windows as for mcmctof_tof_hist.
+extern "C" int mcmctof_tof_hist_bwd(const float* gbar, const float* base,
+                                    const float* zt_t, const float* zw_t,
+                                    const float* lo, const float* hi,
+                                    const float* scale, const int* nb1,
+                                    float* grad, int n_rows, int n_runs,
+                                    int n_cells, int n_ed, int n_seg,
+                                    int n_pad, int device, void* stream) {
+  mcmctof::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  if (n_rows <= 0 || n_cells <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_ed <= 0 || n_seg <= 0 || n_pad <= 0) {   // no samples: all zero
+    return static_cast<int>(cudaMemsetAsync(
+        grad, 0, sizeof(float) * static_cast<size_t>(n_rows) * n_cells, s));
+  }
+  size_t smem = sizeof(float) * static_cast<size_t>(n_pad);
+  const bool stage = smem <= mcmctof::kSmemOptIn;
+  if (!stage) smem = 0;
+  if (smem > mcmctof::kSmemNoOptIn) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mcmctof::tof_hist_bwd_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return mcmctof::failed(err);
+  }
+  int threads = (n_cells + 31) / 32 * 32;
+  threads = threads > mcmctof::kMaxThreads ? mcmctof::kMaxThreads : threads;
+  using mcmctof::FastDiv;
+  mcmctof::tof_hist_bwd_kernel<<<n_rows, threads, smem, s>>>(
+      gbar, base, zt_t, zw_t, lo, hi, scale, nb1, grad, FastDiv(n_runs),
+      n_cells, FastDiv(n_ed), n_seg, n_pad, stage);
   return static_cast<int>(cudaGetLastError());
 }

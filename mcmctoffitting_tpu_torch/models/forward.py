@@ -52,7 +52,7 @@ from ..ops.cuda_tof import tof_hist_segments
 from ..ops.cuda_transport import (MomentBins, energy_moments,
                                   transport_moments)
 from ..ops.e0grid import (CountsRates, E0Grid, E0GridTable, contract,
-                          counts_lambdas, expected_e0_mean, expected_moments,
+                          counts_lambdas, expected_e0_mean, expected_grid,
                           fine_cell_moments, moments_from_counts)
 from ..ops.histogram import WindowConstants, window_constants
 from ..ops.interp import UniformCubicSpline1D, eval_uniform_spline
@@ -419,11 +419,11 @@ class TofForward(torch.nn.Module):
         """One closed-form grid and mean per walker, shared by its runs:
         ((W, 1, M, Be), (W, R))."""
         spec = self.spec
-        moments, e0_mean = expected_moments(
+        grid, e0_mean = expected_grid(
             self.e0grid, params[:, 0], params[:, 1], params[:, 2],
             params[:, 3], spec.n_samples, spec.truncated,
             spec.moment_closure)
-        grid = self.attenuate(contract(self.e0grid, moments))
+        grid = self.attenuate(grid)
         return grid[:, None], e0_mean[:, None].expand(-1, self.n_runs)
 
     # --- the mc estimator -----------------------------------------------

@@ -55,6 +55,9 @@ _SIGNATURES = {
     # scale, nb1, out, n_rows, n_runs, n_cells, n_ed, n_seg, n_pad, device,
     # stream
     "mcmctof_tof_hist": [_P] * 10 + [_I] * 7 + [_P],
+    # gbar, base, zt (K, Be), zw (K, Be), lo, hi, scale, nb1, grad, n_rows,
+    # n_runs, n_cells, n_ed, n_seg, n_pad, device, stream
+    "mcmctof_tof_hist_bwd": [_P] * 9 + [_I] * 7 + [_P],
     # n_cells, n_seg, n_pad -> shared memory (bytes) of the fast kernel, or
     # 0 where the general kernel serves
     "mcmctof_tof_hist_plan": [_I] * 3,

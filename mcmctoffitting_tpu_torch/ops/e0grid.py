@@ -228,6 +228,21 @@ class E0Grid(torch.nn.Module):
         self.register_buffer("js", torch.arange(4, dtype=torch.float32,
                                                 device=device))
 
+    def float64(self) -> "E0Grid":
+        """A float64 copy of this grid's buffers (the float32 values,
+        widened), made once per device: the precision in which
+        :func:`expected_grid` differentiates."""
+        copy = self.__dict__.get("_float64")
+        if copy is None or copy.a_matrix.device != self.a_matrix.device:
+            copy = E0Grid.__new__(E0Grid)
+            torch.nn.Module.__init__(copy)
+            copy.__dict__.update({k: v for k, v in self.__dict__.items()
+                                  if not k.startswith("_")})
+            for name, buf in self.named_buffers():
+                copy.register_buffer(name, buf.double())
+            self.__dict__["_float64"] = copy   # not a submodule
+        return copy
+
 
 def contract(grid: E0Grid, moments: torch.Tensor) -> torch.Tensor:
     """(..., 4, F) fine-cell moments -> (..., M, Be) grid: one float32
@@ -274,6 +289,15 @@ def fine_cell_moments(grid: E0Grid, e0: torch.Tensor) -> torch.Tensor:
     return dequantise(out, shifts, 0).movedim(0, 1).reshape(lead + (4, f))
 
 
+def relu_split(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) with the gradient of ``jnp.maximum(x, 0.0)``: half of it
+    at x == 0 (``torch.clamp_min`` passes all of it).  The value is
+    max(x, 0) bit for bit (x + |x| is exactly 2x or 0).  The tie is
+    common here: where both ndtr edges of a cell saturate, their difference
+    is exactly 0, and its derivative is not."""
+    return 0.5 * (x + torch.abs(x))
+
+
 def _lognorm_w_machinery(beam_e, e_loss, scale, s):
     """Shared guards + partial moments of the lognormal beam law.
 
@@ -295,7 +319,7 @@ def _lognorm_w_machinery(beam_e, e_loss, scale, s):
             torch.log(torch.clamp_min(hi, 1e-30)) / safe_s - j * safe_s)
         amt = top - torch.special.ndtr(torch.log(lo_c) / safe_s - j * safe_s)
         return (torch.exp(0.5 * j * j * safe_s * safe_s)
-                * torch.clamp_min(amt, 0.0))
+                * relu_split(amt))
 
     return valid, safe_scale, safe_s, w_of, partial
 
@@ -334,7 +358,7 @@ def expected_moments(grid: E0Grid, beam_e, e_loss, scale, s,
     logw = torch.log(torch.clamp_min(w_edges, 1e-30)) / safe_s[col]
     nd = torch.special.ndtr(logw[..., None, :]
                             - js[:, None] * safe_s[..., None, None])
-    amt = torch.clamp_min(nd[..., :-1] - nd[..., 1:], 0.0)   # (..., n, F)
+    amt = relu_split(nd[..., :-1] - nd[..., 1:])              # (..., n, F)
     pm = torch.exp(0.5 * js * js * safe_s[col] * safe_s[col])[..., None] * amt
 
     # t = A - B W with A = (beamE - t_ref - eLoss)/t_scale, B = scale/t_scale
@@ -354,10 +378,11 @@ def expected_moments(grid: E0Grid, beam_e, e_loss, scale, s,
         t_edges = grid.t_edges
         h = (grid.e0_hi - grid.e0_lo) / (grid.n_fine * grid.t_scale)
         t_c = 0.5 * (t_edges[:-1] + t_edges[1:])
-        m1 = torch.clamp(s1 / torch.clamp_min(s0, 1e-12),
-                         t_edges[:-1], t_edges[1:])
+        m1 = torch.minimum(
+            torch.maximum(s1 / torch.clamp_min(s0, 1e-12), t_edges[:-1]),
+            t_edges[1:])
         dm = m1 - t_c
-        v = torch.clamp_min(h * h / 12.0 - dm * dm, 0.0)
+        v = relu_split(h * h / 12.0 - dm * dm)
         mu3 = (2.0 * dm * dm - 0.1 * h * h) * dm
         s2 = s0 * (m1 * m1 + v)
         s3 = s0 * (m1 * (m1 * m1 + 3.0 * v) + mu3)
@@ -454,6 +479,60 @@ def moments_from_counts(grid: E0Grid, counts: torch.Tensor,
     e0_mean = torch.where(total > 0, e0_sum / torch.clamp_min(total, 1.0),
                           rates.e0_mean_expected)
     return moments, e0_mean
+
+
+class _ExpectedGrid(torch.autograd.Function):
+    """The closed-form grid, ``contract(expected_moments(...))``, and the
+    e0 mean, with a float64 backward: the forward is the float32
+    computation as it is, the backward differentiates the same function
+    recomputed in float64 (the same float32 inputs and buffers, widened).
+    The grid is a cubic reconstruction whose four channel rows cancel, and
+    so does its derivative: float32 autograd of this stage leaves the
+    log-prob's gradient a median 1.6e-3 from float64 on oneBD's preset,
+    this backward 9e-5 (``perf/gradient_precision.py``)."""
+
+    @staticmethod
+    def forward(ctx, grid, beam_e, e_loss, scale, s, n_samples, truncated,
+                closure):
+        moments, e0_mean = expected_moments(grid, beam_e, e_loss, scale, s,
+                                            n_samples, truncated, closure)
+        ctx.save_for_backward(beam_e, e_loss, scale, s)
+        ctx.args = (grid, n_samples, truncated, closure)
+        return contract(grid, moments), e0_mean
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_grid, g_mean):
+        grid, n_samples, truncated, closure = ctx.args
+        with torch.enable_grad():
+            params = [t.detach().double().requires_grad_(True)
+                      for t in ctx.saved_tensors]
+            moments, e0_mean = expected_moments(
+                grid.float64(), *params, n_samples, truncated, closure)
+            out = contract(grid.float64(), moments)
+            grads = torch.autograd.grad(
+                (out, e0_mean), params, (g_grid.double(), g_mean.double()),
+                allow_unused=True)
+        grads = [None if g is None or not need else g.to(t.dtype)
+                 for g, t, need in zip(grads, ctx.saved_tensors,
+                                       ctx.needs_input_grad[1:5])]
+        return (None, *grads, None, None, None)
+
+
+def expected_grid(grid: E0Grid, beam_e, e_loss, scale, s, n_samples: float,
+                  truncated: bool, closure: str = "exact"):
+    """The closed-form estimator's grid and e0 mean: parameters (...,) ->
+    ((..., M, Be), (...,)), :func:`expected_moments` contracted with the A
+    operator.  Where a parameter needs a gradient, the backward runs in
+    float64 (:class:`_ExpectedGrid`); the values are the float32 ones
+    either way."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (beam_e, e_loss, scale, s)):
+        return _ExpectedGrid.apply(grid, beam_e, e_loss, scale, s,
+                                   n_samples, truncated, closure)
+    moments, e0_mean = expected_moments(grid, beam_e, e_loss, scale, s,
+                                        n_samples, truncated, closure)
+    return contract(grid, moments), e0_mean
 
 
 def expected_e0_mean(beam_e, e_loss, scale, s, truncated: bool):

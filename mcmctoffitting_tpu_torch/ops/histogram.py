@@ -46,6 +46,19 @@ def window_constants(windows, *, device) -> WindowConstants:
         max(w.n_bins for w in windows))
 
 
+def window_bins(values: torch.Tensor, win: WindowConstants):
+    """np.histogram's bin of every value of (..., R, N) in its run's window:
+    (index (..., R, N) int64, in_range (..., R, N) bool).  A value counts
+    when lo <= v <= hi (NaN does not), and v == hi lands in the last bin;
+    out-of-range values get index 0."""
+    lo, hi = win.lo[:, None], win.hi[:, None]
+    in_range = (values >= lo) & (values <= hi)
+    scaled = torch.floor((values - lo) * win.scale[:, None])
+    idx = torch.where(in_range, scaled, 0.0).to(torch.int64)
+    idx = torch.minimum(torch.clamp_min(idx, 0), win.nb1[:, None].long())
+    return idx, in_range
+
+
 def weighted_histogram_multi_window(values: torch.Tensor,
                                     win: WindowConstants,
                                     weights: torch.Tensor,
@@ -53,12 +66,7 @@ def weighted_histogram_multi_window(values: torch.Tensor,
     """Per-run histograms: values/weights (..., R, N) -> (..., R, n_pad),
     row r binned against window r; the float32 weights are summed, and
     returned, in ``sum_dtype``."""
-    lo, hi = win.lo[:, None], win.hi[:, None]
-    in_range = (values >= lo) & (values <= hi)
-    scaled = torch.floor((values - lo) * win.scale[:, None])
-    # out-of-range (and NaN) values get index 0 and weight 0
-    idx = torch.where(in_range, scaled, 0.0).to(torch.int64)
-    idx = torch.minimum(torch.clamp_min(idx, 0), win.nb1[:, None].long())
+    idx, in_range = window_bins(values, win)
     w = torch.where(in_range, weights.to(torch.float32), 0.0).to(sum_dtype)
     out = torch.zeros(values.shape[:-1] + (win.n_pad,), dtype=sum_dtype,
                       device=values.device)

@@ -307,7 +307,6 @@ def test_every_jax_flag_parses(model):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["-sampler", "nuts"], "slice 6"), (["-sampler", "hmc"], "slice 6"),
     (["-mesh", "2"], "slice 8"), (["-profile", "trace_dir"], "slice 7")])
 @pytest.mark.parametrize("model", ["simult", "onebd"])
 def test_later_slices_raise_not_ported(model, argv, slice_):

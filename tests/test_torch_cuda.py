@@ -448,3 +448,168 @@ def test_cli_resume_exact_on_the_card(dev, flags, tmp_path, monkeypatch):
         chains[name] = (where / "mainchain.dat").read_bytes()
     assert chains["a"] == chains["b"]
     assert chains["a"].count(b"\n") == 4 * 32
+
+
+def _k2_bwd_check(gbar, base, zt, zw, win):
+    """The backward kernel against the float64 gather of the cotangent,
+    within 1e-6 of sum_k |zw| max|gbar|, and against the autograd of the
+    plain version; the same bits on a second call."""
+    from mcmctoffitting_tpu_torch.ops.cuda_tof import (
+        tof_hist_segments_backward, tof_hist_segments_bwd_plain)
+    got = tof_hist_segments_backward(gbar, base, zt, zw, win)
+    exact = tof_hist_segments_bwd_plain(gbar, base, zt, zw, win,
+                                        torch.float64)
+    bound = 1e-6 * zw.abs().sum(1).max().item() * gbar.abs().max().item()
+    assert torch.all((got.double() - exact).abs() <= bound)
+    d = torch.zeros_like(base).requires_grad_(True)
+    plain = tof_hist_segments_plain(base, d, zt, zw, win)
+    want, = torch.autograd.grad(plain, d, gbar)
+    assert torch.all((got - want).abs() <= bound)
+    assert torch.equal(got, tof_hist_segments_backward(gbar, base, zt, zw,
+                                                       win))
+    return got
+
+
+@pytest.mark.parametrize("case", ["simult", "onebd", "one_row", "few_cells",
+                                  "bins_over_the_stage_cap"])
+def test_tof_backward_kernel_matches_plain(dev, case):
+    """K2's backward (``tof_hist_bwd``) at both fits' lattices and at the
+    edges of its launch: one row, fewer cells than a warp, a window too
+    wide to stage its cotangent in shared memory."""
+    rng = np.random.default_rng(8)
+    windows, shape, k = SIMULT_WINDOWS, (8, 4, 10, 50), 10
+    if case == "onebd":
+        windows, shape, k = ONEBD_WINDOWS, (8, 3, 20, 400), 1
+    elif case == "one_row":
+        windows, shape = (tof_windows["mid"],), (1, 10, 50)
+    elif case == "few_cells":
+        shape, k = (5, 4, 3, 7), 3
+    elif case == "bins_over_the_stage_cap":
+        windows = (TofWindow(130.0, 260.0, 60_000),
+                   TofWindow(175.0, 225.0, 50))
+        shape = (3, 2, 10, 50)
+    base, _, zt, zw, win = _k2_inputs(rng, dev, shape, windows, k)
+    gbar = torch.as_tensor(rng.standard_normal(
+        shape[:-2] + (win.n_pad,)).astype(np.float32), device=dev)
+    got = _k2_bwd_check(gbar, base, zt, zw, win)
+    assert torch.count_nonzero(got) > 0
+
+
+def test_tof_backward_kernel_edge_cases_exact(dev):
+    """v == hi -> the last bin's cotangent, v == lo -> the first's, just
+    outside and NaN -> nothing: exactly the plain version's values."""
+    from mcmctoffitting_tpu_torch.ops.cuda_tof import (
+        tof_hist_segments_backward, tof_hist_segments_bwd_plain)
+    win = window_constants(SIMULT_WINDOWS, device=dev)
+    base = torch.full((1, 4, 10, 50), 1000.0, device=dev)
+    zt = torch.zeros((50, 10), device=dev)
+    zw = torch.zeros((50, 10), device=dev)
+    zw[:6, 0] = torch.tensor([1.0, 2.0, 4.0, 8.0, 16.0, 32.0])
+    for r in range(4):
+        lo, hi = win.lo[r].item(), win.hi[r].item()
+        base[0, r, 0, :6] = torch.tensor([hi, hi + 0.5, lo, lo - 0.5,
+                                          float("nan"), lo + 1.5])
+    gbar = torch.arange(1.0, 1.0 + 4 * win.n_pad, device=dev).reshape(
+        1, 4, win.n_pad)
+    got = tof_hist_segments_backward(gbar, base, zt, zw, win)
+    want = tof_hist_segments_bwd_plain(gbar, base, zt, zw, win)
+    assert torch.equal(got, want)
+    nb1 = win.nb1.long()
+    assert torch.equal(got[0, :, 0, 0], gbar[0, torch.arange(4), nb1])
+    assert torch.equal(got[0, :, 0, 2], 4.0 * gbar[0, :, 0])
+    assert not got[0, :, 0, [1, 3, 4]].any()
+
+
+def test_tof_autograd_function_on_the_card(dev):
+    """A CUDA input that needs a gradient goes through TofHistSegments:
+    one forward and one backward launch, the kernel's forward values, and
+    the draws' gradient of the backward kernel."""
+    from mcmctoffitting_tpu_torch.ops.cuda_tof import (
+        tof_hist_segments_backward)
+    rng = np.random.default_rng(9)
+    base, draws, zt, zw, win = _k2_inputs(rng, dev, (4, 4, 10, 50),
+                                          SIMULT_WINDOWS)
+    want = tof_hist_segments(base, draws, zt, zw, win)
+    fwd0 = tof_hist_segments.launches
+    bwd0 = tof_hist_segments.backward_launches
+    d = draws.clone().requires_grad_(True)
+    out = tof_hist_segments(base, d, zt, zw, win)
+    gbar = torch.randn(out.shape, device=dev)
+    grad, = torch.autograd.grad(out, d, gbar)
+    assert torch.equal(out.detach(), want)
+    assert torch.equal(grad, tof_hist_segments_backward(gbar, base, zt, zw,
+                                                        win))
+    assert tof_hist_segments.launches - fwd0 == 1
+    assert tof_hist_segments.backward_launches - bwd0 == 2
+
+
+@pytest.mark.parametrize("model", ["simult", "onebd"])
+def test_log_prob_gradient_gpu_vs_cpu(dev, model):
+    """The gradient of the differentiable log-prob ('expected', corrected
+    likelihood, no rint; oneBD with the background's expectation) on the
+    card against the CPU's at the fit's initial walkers, per chain within
+    1e-3 relative L2 with the float32 grid stage's values shared (each
+    device's float32 grid is off by ~1e-4 of its peak, which the
+    likelihood's gradient can weigh up to percents: perf/
+    gradient_precision.py), with K2's forward and backward launched once
+    each."""
+    import dataclasses
+
+    from mcmctoffitting_tpu_torch.models import onebd, simult
+    from mcmctoffitting_tpu_torch.utils import data_io
+    if model == "simult":
+        spec = dataclasses.replace(simult.default_spec(
+            200_000, sampling="expected"), rint_draws=False)
+        make = lambda d: simult.SimultFitProblem(  # noqa: E731
+            spec, n_runs=4, likelihood="poisson", device=d)
+        truth = np.concatenate([simult.GUESS_SHARED, np.full(4, 5e4)])
+    else:
+        spec = dataclasses.replace(onebd.default_spec(
+            200_000, sampling="expected"), rint_draws=False,
+            bg_mode="expected")
+        make = lambda d: onebd.OneBDProblem(  # noqa: E731
+            spec, n_runs=3, likelihood="poisson", device=d)
+        truth = data_io.ONEBD_TRUTH
+    cpu, card = make("cpu"), make(dev)
+    fwd_c, own = cpu.forward, card.forward.grid_and_mean
+
+    def shared(params, generator):
+        grids, means = own(params, generator)
+        c_grids, c_means = fwd_c.grid_and_mean(params.detach().cpu(),
+                                               generator)
+        return (grids + (c_grids.to(dev) - grids).detach(),
+                means + (c_means.to(dev) - means).detach())
+
+    card.forward.grid_and_mean = shared
+    obs = data_io.synthesize_observed(0, cpu, truth)
+    thetas = cpu.initial_walkers_from_observed(
+        torch.Generator().manual_seed(10), 8, obs)
+    grads = []
+    for prob in (card, cpu):
+        x = thetas.to(prob.device).requires_grad_(True)
+        fwd0 = tof_hist_segments.launches
+        bwd0 = tof_hist_segments.backward_launches
+        lp = prob.make_log_prob_fn(obs)(x, torch.Generator())
+        g, = torch.autograd.grad(lp.sum(), x)
+        if prob is card:
+            assert tof_hist_segments.launches - fwd0 == 1
+            assert tof_hist_segments.backward_launches - bwd0 == 1
+        grads.append(g.cpu().numpy())
+    gpu, cpu_g = grads
+    rel = np.linalg.norm(gpu - cpu_g, axis=1) / np.linalg.norm(cpu_g, axis=1)
+    assert np.all(rel <= 1e-3), rel
+
+
+def test_nuts_cli_on_the_card(dev, tmp_path, monkeypatch):
+    """-sampler nuts on the card at a small size: the chain parses back,
+    finite quantiles."""
+    from mcmctoffitting_tpu_torch.cli import simult_fit
+    from mcmctoffitting_tpu_torch.utils import chain_io
+    monkeypatch.chdir(tmp_path)
+    out = simult_fit.main(["-debug", "1", "-nRuns", "2", "-batch", "1",
+                           "-sampler", "nuts", "-expectedForward",
+                           "-likelihood", "poisson", "-nChains", "16",
+                           "-maxDepth", "4"])
+    assert all(np.all(np.isfinite(v)) for v in out["quantiles"].values())
+    chain, _, d, w, s = chain_io.read_chain_text("mainchain.dat")
+    assert (s, w, d) == (10, 16, 6)

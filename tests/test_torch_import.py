@@ -46,12 +46,15 @@ def test_port_imports_without_jax_or_triton():
 
 NEW_MODULES = ("cli._driver", "cli._entry", "cli.simult_fit",
                "cli.csi_onebd", "ops.fixed_point", "utils.chain_io",
-               "utils.diagnostics", "utils.data_io", "utils.native")
+               "utils.diagnostics", "utils.data_io", "utils.native",
+               "sampler.transforms", "sampler._adapt", "sampler.hmc",
+               "sampler.nuts", "utils.optimize")
 
 
 def test_every_module_is_among_those_imported():
-    """The walk above reaches the drivers, chain I/O, diagnostics and the
-    native codec's bindings (which build nothing at import)."""
+    """The walk above reaches the drivers, chain I/O, diagnostics, the
+    native codec's bindings (which build nothing at import), the gradient
+    samplers and the optimisers."""
     import pkgutil
 
     import mcmctoffitting_tpu_torch as pkg
