@@ -100,9 +100,24 @@ Phases (any failure raises; the exit code is then non-zero):
      divergences and mean tree depth of NUTS, and K2 forward and backward
      launched once per gradient evaluation (the forward once more for the
      synthetic data), K1, K3 and K4 never;
+ 18. the posterior-predictive slice (before phase 11 too): (a) the batched
+     forward of PPCSampler.generate on 8 draws at full width (simultFit
+     default, oneBD default), the card against the CPU with the same
+     thetas and initial energies, spectra and weight grids within 1e-4
+     relative L1 per row, the oneBD background's K1 draws all equal to the
+     plain version's; (b) cli.ppc on phase 13's chains at the CLI defaults
+     (100 draws x 50k, simultFit and oneBD) and at the reference's size
+     (500 x 200k, simultFit): bands (3, n_bins), finite, q16 <= q50 <=
+     q84, one SDEF si/sp entry per neutron energy, K2 once per chunk of
+     128 draws, K1 once per chunk on oneBD, K3 and K4 never; PPC draws/s
+     of the CLI's one cold generate() and of 5 warm ones (median, range);
+     (c) cli.plot_chain on phase 13's simultFit chain: the diagnostics,
+     and the plots or the missing-matplotlib line;
  11. the second cross-check of phase 6: torch.profiler's kernel durations
-     of K1 and K2 beside the graph's (last, after phases 12-17, because a
-     profiler that has run makes every later launch dearer for the host).
+     of K1 and K2 beside the graph's (after phases 12-18, because a
+     profiler that has run makes every later launch dearer for the host);
+ 18d. last: one short simultFit counts CLI run with -profile DIR in a
+     subprocess; its Chrome trace exists and names the tof_hist kernel.
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
@@ -123,6 +138,8 @@ import torch
 
 from mcmctoffitting_tpu_torch import sampler
 from mcmctoffitting_tpu_torch.cli import csi_onebd as cli_onebd
+from mcmctoffitting_tpu_torch.cli import plot_chain as cli_plot_chain
+from mcmctoffitting_tpu_torch.cli import ppc as cli_ppc
 from mcmctoffitting_tpu_torch.cli import simult_fit as cli_simult
 from mcmctoffitting_tpu_torch.models import onebd, simult
 from mcmctoffitting_tpu_torch.models import problem as problem_mod
@@ -135,6 +152,7 @@ from mcmctoffitting_tpu_torch.ops.cuda_tof import (
     tof_hist_segments, tof_hist_segments_backward, tof_hist_segments_bwd_plain,
     tof_hist_segments_plain)
 from mcmctoffitting_tpu_torch.utils import chain_io, data_io, devtime
+from mcmctoffitting_tpu_torch.utils import ppc as ppc_mod
 
 N_WALKERS, N_RUNS, N_DRAWS = 256, 4, 200_000
 N_WARM, N_TIMED = 20, 200            # counts fit
@@ -1211,6 +1229,237 @@ def phase_gradient_cli(smi, tmp, rate, launches):
             f"{np.isfinite(probs).mean():.4f}")
 
 
+# --- phase 18: the posterior-predictive slice ----------------------------
+
+PPC_CHUNK = ppc_mod.PPC_CHUNK
+PPC_RUNS = {
+    # name: (-model, phase 13's chain, -nChainEntries, -nSamplesFromTOF)
+    "ppc_simult": ("simult", "simult_mc_default", 100, 50_000),
+    "ppc_onebd": ("onebd", "onebd_hardcore_counts", 100, 50_000),
+    # the reference's generatePPC size (utilities/ppcTools.py:283)
+    "ppc_simult_reference": ("simult", "simult_mc_default", 500, N_DRAWS),
+}
+PPC_CORE_DRAWS = 8
+PPC_WARM_REPEATS = 5
+
+
+def ppc_with_energies(problem, thetas, e_runs, e_grid, seed):
+    """``PPCSampler.generate`` of the rows of ``thetas`` (n, D) in order,
+    the beam draws replaced by the given initial energies on the problem's
+    device: e_runs (n, R, N) for the spectra, e_grid (n, 1, N) for the
+    weight grids; the background draws from the host seed ``seed``."""
+    dev = problem.device
+
+    def energies(params, generator, n_runs=None, n=None):
+        return (e_grid if n_runs == 1 else e_runs).to(dev)
+
+    problem.forward.sample_beam_energies = energies
+    ppc = ppc_mod.PPCSampler(problem, thetas[None], n_steps_to_include=1)
+    ppc.draw_thetas = lambda generator, n, cut=None: thetas
+    return ppc.generate(torch.Generator().manual_seed(seed), thetas.shape[0])
+
+
+def phase_ppc_core(dev, truth_simult):
+    """Phase 18a: PPCSampler.generate's batched forward, the card against
+    the CPU on 8 draws at full width (the simultFit default, mc on the
+    table, and the oneBD default), the same thetas and initial energies on
+    both; the oneBD background as phase 10a holds it."""
+    out = {}
+    for name, make, truth in (
+            ("simult", lambda d: simult_problem(
+                simult.default_spec(N_DRAWS), "reference", d), truth_simult),
+            ("onebd", lambda d: onebd_problem(
+                onebd.default_spec(N_DRAWS), "reference", d),
+             data_io.ONEBD_TRUTH)):
+        card, cpu = make(dev), make("cpu")
+        obs = data_io.synthesize_observed(9, card, truth)
+        thetas = card.initial_walkers_from_observed(
+            torch.Generator(dev).manual_seed(1), PPC_CORE_DRAWS, obs)
+        params = card.shared_params(thetas)
+        gen = torch.Generator().manual_seed(2)
+        e_runs = card.forward.sample_beam_energies(params, gen)
+        e_grid = card.forward.sample_beam_energies(params, gen, n_runs=1)
+        thetas = thetas.cpu().numpy()
+        reset_counts()
+        got = ppc_with_energies(card, thetas, e_runs, e_grid, 3)
+        torch.cuda.synchronize()
+        used = read_counts()
+        want = ppc_with_energies(cpu, thetas, e_runs.cpu(), e_grid.cpu(), 3)
+
+        def rel_l1(a, b):
+            a = a.reshape(PPC_CORE_DRAWS, -1)
+            b = b.reshape(PPC_CORE_DRAWS, -1)
+            return float((np.abs(a - b).sum(-1) / np.abs(b).sum(-1)).max())
+
+        rel = max(rel_l1(g, w) for g, w in zip(got.tof_spectra,
+                                               want.tof_spectra))
+        rel_grid = rel_l1(got.neutron_spectra, want.neutron_spectra)
+        log(f"phase 18a ({name}): PPC GPU vs CPU on {PPC_CORE_DRAWS} draws "
+            f"x {card.n_runs} runs x {N_DRAWS} initial energies: spectra "
+            f"max rel L1 {rel:.2e}, weight grids {rel_grid:.2e}; "
+            f"launches {used}")
+        require(all(np.isfinite(s).all() for s in got.tof_spectra)
+                and np.isfinite(got.neutron_spectra).all(),
+                f"phase 18a ({name}): finite PPC spectra and grids")
+        require(rel <= 1e-4 and rel_grid <= 1e-4,
+                f"phase 18a ({name}): PPC GPU vs CPU within 1e-4 rel L1")
+        require(used["tof_hist"] == 1
+                and used["poisson"] == (1 if name == "onebd" else 0)
+                and used["weighted_hist"] == used["transport_moments"] == 0,
+                f"phase 18a ({name}): K2 once, K1 once on oneBD, K3/K4 never")
+        if name == "onebd":
+            # the background itself: K1 on the card, its plain version on
+            # the CPU, one host seed: every draw equal (phase 10a)
+            _, _, levels = card.split_theta(torch.as_tensor(thetas,
+                                                            device=dev))
+            bg = [p.forward.background(levels.to(p.device),
+                                       torch.Generator().manual_seed(4))
+                  .cpu() for p in (card, cpu)]
+            bg_equal = bool(torch.equal(*bg))
+            log(f"phase 18a (onebd): background {tuple(bg[0].shape)}, K1 "
+                f"vs plain, one seed: every draw equal {bg_equal}")
+            require(bg_equal, "phase 18a: oneBD background draws equal")
+        out[name] = {"spectra_rel_l1": rel, "grids_rel_l1": rel_grid}
+        del card, cpu
+    return out
+
+
+def warm_generate_s(model, chain_path, n_entries, n_samples, dev):
+    """Seconds of each of PPC_WARM_REPEATS ``PPCSampler.generate`` calls
+    after the CLI's own (cold) one: the CLI's problem, chain tail, draw
+    count and seed, each call ending with its spectra on the host."""
+    chain, probs, *_ = chain_io.read_chain_text(str(chain_path))
+    spec = (simult.default_spec(n_samples) if model == "simult"
+            else onebd.default_spec(n_samples))
+    problem = (simult_problem if model == "simult"
+               else onebd_problem)(spec, "reference", dev)
+    sampler = ppc_mod.PPCSampler(problem, chain, probs)
+    times = []
+    for _ in range(PPC_WARM_REPEATS):
+        t0 = time.perf_counter()
+        sampler.generate(torch.Generator().manual_seed(0), n_entries)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def phase_ppc_cli(smi, tmp, rate, launches, dev):
+    """Phase 18b: cli.ppc on phase 13's chains at the CLI defaults for
+    both models and at the reference's size for simultFit."""
+    out = {}
+    for name, (model, chain_of, n_entries, n_samples) in PPC_RUNS.items():
+        where = tmp / name
+        where.mkdir()
+        label = f"phase 18b ({name})"
+        argv = ["-chainFilename", str(tmp / chain_of / "mainchain.dat"),
+                "-model", model, "-nChainEntries", str(n_entries),
+                "-nSamplesFromTOF", str(n_samples)]
+        t0 = time.perf_counter()
+        res, text, _, used = run_cli(cli_ppc, argv, where, label)
+        cli_s = time.perf_counter() - t0
+        spec = (simult.default_spec(n_samples) if model == "simult"
+                else onebd.default_spec(n_samples))
+        windows = (simult_problem(spec, "reference", "cpu")
+                   if model == "simult"
+                   else onebd_problem(spec, "reference", "cpu")).windows
+        n_runs = len(windows)
+        for run, win in enumerate(windows):
+            bands = np.loadtxt(where / f"ppc_run{run}_bands.txt")
+            require(bands.shape == (3, win.n_bins)
+                    and np.isfinite(bands).all()
+                    and np.all(bands[0] <= bands[1])
+                    and np.all(bands[1] <= bands[2]),
+                    f"{label}: run {run} bands (3, {win.n_bins}), finite, "
+                    "q16 <= q50 <= q84")
+        n_en = len(spec.en_centers())
+        si, sp = (where / "ppc_sdef.txt").read_text().splitlines()
+        require(si.startswith("si100 a") and len(si.split()) == 2 + n_en
+                and sp.startswith("sp100") and len(sp.split()) == 1 + n_en,
+                f"{label}: SDEF card with one si and sp entry per energy")
+        require("wrote ppc_sdef.txt" in text
+                and ("wrote PPC plots" in text or
+                     "plotting skipped: matplotlib is not installed" in text),
+                f"{label}: the CLI's lines")
+        chunks = -(-n_entries // PPC_CHUNK)
+        require(used["tof_hist"] == chunks
+                and used["poisson"] == (chunks if model == "onebd" else 0)
+                and used["weighted_hist"] == used["transport_moments"]
+                == used["K2-bwd"] == 0,
+                f"{label}: K2 once per chunk of draws, K1 once per chunk "
+                f"on oneBD, K3/K4 never ({used}, {chunks} chunks)")
+        draws_per_s = n_entries / res["generate_s"]
+        warm = warm_generate_s(model, tmp / chain_of / "mainchain.dat",
+                               n_entries, n_samples, dev)
+        warm_s = float(np.median(warm))
+        rate[f"{name}_draws_per_s"] = draws_per_s
+        rate[f"{name}_warm_draws_per_s"] = n_entries / warm_s
+        launches[f"cli_{name}"] = dict(used, chunks=chunks)
+        out[name] = {"draws": n_entries, "draws_per_eval": n_samples,
+                     "runs": n_runs, "generate_s": res["generate_s"],
+                     "draws_per_s": draws_per_s, "cli_s": cli_s,
+                     "warm_generate_s": warm,
+                     "warm_draws_per_s": n_entries / warm_s}
+        log(f"{label} ({smi}): {n_entries} posterior draws x {n_runs} runs "
+            f"x {n_samples} draws per eval in {res['generate_s']:.4f} s "
+            f"(the CLI's one cold call) -> {draws_per_s:.1f} PPC draws/s, "
+            f"{res['generate_s'] / n_runs:.4f} s per run; the whole CLI "
+            f"(problem, chain, bands, card) {cli_s:.3f} s; "
+            f"{PPC_WARM_REPEATS} warm calls: median {warm_s:.4f} s -> "
+            f"{n_entries / warm_s:.1f} PPC draws/s (range "
+            f"{n_entries / max(warm):.1f}-{n_entries / min(warm):.1f})")
+    return out
+
+
+def phase_plot_chain(tmp):
+    """Phase 18c: cli.plot_chain on phase 13's simultFit chain."""
+    where = tmp / "plot_chain"
+    where.mkdir()
+    res, text, _, _ = run_cli(
+        cli_plot_chain, ["-filename",
+                         str(tmp / "simult_mc_default" / "mainchain.dat")],
+        where, "phase 18c (plot_chain)")
+    drew = "wrote plots with prefix chain_" in text
+    require(res == {"n_steps": 8, "n_walkers": N_WALKERS, "n_params": 8}
+            and "diagnostics:" in text
+            and (drew or text.count(
+                "plotting skipped: matplotlib is not installed") == 1),
+            "phase 18c: plot_chain prints the diagnostics, and the plots or "
+            "the missing-matplotlib line")
+    log(f"phase 18c: plot_chain printed the diagnostics; "
+        + ("wrote its plots" if drew else "matplotlib is not installed"))
+
+
+def phase_profile():
+    """Phase 18d (last): one short simultFit counts CLI run with -profile
+    DIR in a subprocess; its trace names the tof_hist kernel."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        env = dict(os.environ,
+                   PYTHONPATH=str(Path(__file__).resolve().parent))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mcmctoffitting_tpu_torch.cli.simult_fit",
+             "-sampling", "counts", "-likelihood", "poisson",
+             "-nBurninSteps", "2", "-nMainSteps", "2", "-segment", "2",
+             "-batch", "1", "-profile", "trace_dir"], cwd=tmp, env=env,
+            capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0,
+                f"phase 18d: -profile run exits 0 ({proc.stderr[-2000:]})")
+        trace = Path(tmp) / "trace_dir" / "trace.json"
+        require(trace.exists(), "phase 18d: the trace file exists")
+        events = json.loads(trace.read_text())["traceEvents"]
+        kernels = [e for e in events
+                   if str(e.get("cat", "")).lower() == "kernel"
+                   and "tof_hist" in e.get("name", "")]
+        log(f"phase 18d: -profile trace_dir: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s, {trace.stat().st_size} "
+            f"bytes, {len(events)} events, {len(kernels)} tof_hist kernel "
+            f"events; 'profiler trace written to trace_dir' printed: "
+            f"{'profiler trace written to trace_dir' in proc.stdout}")
+        require(kernels and "profiler trace written to trace_dir"
+                in proc.stdout, "phase 18d: the trace names tof_hist")
+    return len(kernels)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False "
@@ -1484,6 +1733,13 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         phase_cli(smi, Path(tmp), rate, launches)
         phase_resume(Path(tmp))
+        # phase 18 (before phase 11 too): the posterior-predictive slice on
+        # phase 13's chains
+        torch.cuda.empty_cache()
+        ppc_core = phase_ppc_core(dev, truth)
+        ppc_cli = phase_ppc_cli(smi, Path(tmp), rate, launches,
+                                dev)
+        phase_plot_chain(Path(tmp))
 
     # phases 15-17: K2's backward, the log-prob's gradient, the gradient
     # samplers through the CLIs (before phase 11 too)
@@ -1551,9 +1807,10 @@ def main():
             "at_onebd_shapes": at_onebd.get(name),
             "launches_onebd_hardcore_counts":
                 launches["onebd_hardcore_counts"][name],
-            # launches during each command-line run of phases 13 and 17
+            # launches during each command-line run of phases 13, 17, 18
             "launches_cli": {run: launches[f"cli_{run}"][name]
-                             for run in (*CLI_RUNS, *GRAD_RUNS)}})
+                             for run in (*CLI_RUNS, *GRAD_RUNS,
+                                         *PPC_RUNS)}})
     # K2's backward: its time, bound and error at simultFit's lattice, the
     # oneBD hardcore lattice beside it; its launches on this slice's main
     # path, the gradient samplers' CLI runs
@@ -1576,9 +1833,14 @@ def main():
             run: launches[f"cli_{run}"]["gradient_evaluations"]
             for run in GRAD_RUNS},
         "gradient_gpu_vs_cpu_rel_l2": grad_rel})
+    # phase 18d, last: -profile in a subprocess of its own
+    profile_kernels = phase_profile()
     print(json.dumps({"kernels": kernels, "walker_steps_per_s": rate,
                       "acceptance": acc, "launches_by_path": launches,
-                      "onebd_a_build_seconds": at_onebd["a_build_seconds"]}))
+                      "onebd_a_build_seconds": at_onebd["a_build_seconds"],
+                      "ppc": {"gpu_vs_cpu": ppc_core, "cli": ppc_cli,
+                              "profile_tof_hist_kernel_events":
+                              profile_kernels}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,16 +10,21 @@ file names.  Randomness comes from torch generators seeded from ``-seed``
 the device, the host generator that seeds the log-prob's draws, and one
 each for the synthetic data, the initial walkers and the likelihood check.
 Flags that only chose a TPU/XLA schedule or the JAX PRNG (``-runAxis``,
-``-prng``) are accepted with a note; features of later slices of the port
-(``-mesh`` > 1, ``-profile``) raise ``models.forward.not_ported``.
+``-prng``) are accepted with a note; ``-mesh`` > 1, a later slice of the
+port, raises ``models.forward.not_ported``.  ``-profile DIR`` traces the
+sampling phases with ``torch.profiler`` (``utils/profiling.py``).  The
+figures need matplotlib; without it each prints the line that says so
+(:func:`draw_figure`), and any other plotting error fails the run.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
 import sys
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -28,7 +33,7 @@ from ..models.forward import not_ported, resolve_device
 from ..ops.likelihoods import poisson_binned_terms, poisson_logpmf_terms
 from ..sampler import (BoxLogitTransform, EnsembleState, hmc_sample,
                        init_state, nuts_sample, run_mcmc)
-from ..utils import chain_io
+from ..utils import chain_io, plotting, profiling
 from ..utils.diagnostics import (chain_summary, format_summary,
                                  integrated_autocorr_time)
 
@@ -84,8 +89,9 @@ def check_likelihood_eval(problem, observed, generator: torch.Generator, *,
     """Verbose per-bin likelihood table at the guess point: per-bin
     obs/model/loglike of the ACTIVE likelihood per run, the run totals and
     the total, which is returned (the number the sampler sees at this
-    theta, less the flat in-box prior).  The overlay figure of each run is
-    the plotting slice's; without it the table says so."""
+    theta, less the flat in-box prior).  Without ``batch``, each run's
+    observed-vs-model overlay goes to ``{prefix}likelihoodCheck_run{r}.png``
+    (:func:`draw_figure`)."""
     theta = torch.as_tensor(
         np.asarray(problem.guess_theta(observed), np.float32),
         device=problem.device)
@@ -110,14 +116,32 @@ def check_likelihood_eval(problem, observed, generator: torch.Generator, *,
         total += run_total
         print(f"run {run} likelihood: {run_total:.4f}")
         if not batch:
-            print(f"plotting skipped: {plotting_not_ported()} "
-                  f"({prefix}likelihoodCheck_run{run}.png)")
+            draw_figure(lambda: plotting.model_overlay_plot(
+                obs, model, f"{prefix}likelihoodCheck_run{run}.png"))
     print(f"total likelihood is {total:.4f}")
     return total
 
 
-def plotting_not_ported() -> NotImplementedError:
-    return not_ported("utils/plotting.py", "slice 7")
+def draw_figure(draw: Callable[[], object]) -> bool:
+    """Run ``draw``; where matplotlib is not installed, print the one line
+    that says so and return False.  Any other error, an ``ImportError``
+    of another module included, propagates."""
+    try:
+        draw()
+    except ImportError as e:
+        if (e.name or "").split(".")[0] != "matplotlib":
+            raise
+        print(f"plotting skipped: matplotlib is not installed ({e})")
+        return False
+    return True
+
+
+def profiled(profile_dir: str):
+    """``torch.profiler`` over a block for ``-profile DIR`` (its Chrome
+    trace written into DIR), or nothing without the flag."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    return profiling.trace(profile_dir)
 
 
 def load_resume_state(path, problem, observed, logp_batch, *, seed: int):
@@ -428,8 +452,10 @@ def add_common_flags(p, refs: dict) -> None:
                    help="accepted for surface parity and ignored "
                         f"(reference {refs['mpi']})")
     p.add_argument("-profile", default="", type=str, metavar="DIR",
-                   help="profiler trace of the sampling phases; a later "
-                        "slice of the port")
+                   help="trace the sampling phases with torch.profiler "
+                        "(CPU and CUDA activities) into DIR/"
+                        f"{profiling.TRACE_FILE}, a Chrome trace "
+                        "(utils/profiling.py)")
     p.add_argument("-prng", choices=["threefry2x32", "rbg"], default=None,
                    help="the JAX package's PRNG implementation; accepted, "
                         "no effect here")
@@ -441,8 +467,6 @@ def common_setup(args) -> torch.device:
     if args.mesh > 1:
         raise not_ported(f"-mesh {args.mesh} (more than one GPU)",
                          "slice 8")
-    if args.profile:
-        raise not_ported("-profile", "slice 7")
     if args.runAxis is not None:
         print(f"note: -runAxis {args.runAxis} has no effect here (it picks "
               "an XLA schedule of the JAX package)")
@@ -541,22 +565,25 @@ def run_gradient_sampler(args, problem, observed, *, names):
           f"+ {n_steps} steps (box-logit coordinates)")
     generator = seeded_generator(args.seed, STREAM_MOVES, device)
     t0 = time.time()
-    if args.sampler == "nuts":
-        chain = nuts_sample(generator, p0, n_steps, logp_u,
-                            n_warmup=n_warmup, max_depth=args.maxDepth)
-        accept = chain.accept_stat
-        n_div = int(torch.sum(chain.diverging))
-        extra = (f"nuts: step_size {chain.step_size:.4g}, mean tree depth "
-                 f"{float(torch.mean(chain.tree_depth.float())):.1f}, "
-                 f"divergences {n_div}/{accept.numel()}")
-    else:
-        chain = hmc_sample(generator, p0, n_steps, logp_u,
-                           n_warmup=n_warmup)
-        accept = chain.accept_prob
-        extra = f"hmc: step_size {chain.step_size:.4g}"
-    positions = tr.to_theta(chain.positions).cpu().numpy()
-    log_probs = chain.log_probs.cpu().numpy()
+    with profiled(args.profile):
+        if args.sampler == "nuts":
+            chain = nuts_sample(generator, p0, n_steps, logp_u,
+                                n_warmup=n_warmup, max_depth=args.maxDepth)
+            accept = chain.accept_stat
+            n_div = int(torch.sum(chain.diverging))
+            extra = (f"nuts: step_size {chain.step_size:.4g}, mean tree "
+                     f"depth {float(torch.mean(chain.tree_depth.float())):.1f}"
+                     f", divergences {n_div}/{accept.numel()}")
+        else:
+            chain = hmc_sample(generator, p0, n_steps, logp_u,
+                               n_warmup=n_warmup)
+            accept = chain.accept_prob
+            extra = f"hmc: step_size {chain.step_size:.4g}"
+        positions = tr.to_theta(chain.positions).cpu().numpy()
+        log_probs = chain.log_probs.cpu().numpy()
     elapsed = time.time() - t0
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
     print(f"{extra}, mean accept stat {float(torch.mean(accept)):.2f}")
     print(f"{args.sampler}: {chain.n_grad_evals} gradient evaluations of "
           f"{chain.n_chain_grads} chain gradients in {elapsed:.2f} s "
@@ -599,16 +626,20 @@ def fit_phases(args, problem, observed, logp_batch, *, n_walkers: int,
         phases = (("burn-in", burnin_path, burnin_steps, True),
                   ("main", main_path, main_steps, True))
 
-    state, total_steps, elapsed = run_phases(
-        state, phases, logp_batch, segment=args.segment, prefix=prefix,
-        fingerprint=fingerprint,
-        adaptive_phase="main" if args.convergeMain else None,
-        tau_factor=args.tauFactor, move=args.move)
+    with profiled(args.profile):
+        state, total_steps, elapsed = run_phases(
+            state, phases, logp_batch, segment=args.segment, prefix=prefix,
+            fingerprint=fingerprint,
+            adaptive_phase="main" if args.convergeMain else None,
+            tau_factor=args.tauFactor, move=args.move)
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
     main_chain, _, n_params, _, _ = chain_io.read_chain_text(main_path)
     result = report_quantiles(main_chain.reshape(-1, n_params), names)
 
     rate = total_steps * int(state.positions.shape[0]) / elapsed
     print(json.dumps({"walker_steps_per_sec": rate, "elapsed_s": elapsed}))
     if not args.batch:
-        print(f"plotting skipped: {plotting_not_ported()}")
+        draw_figure(lambda: plotting.trace_plot(
+            main_chain, names, prefix + "runSampleChainsOut.png"))
     return {"quantiles": result, "walker_steps_per_sec": rate}

@@ -1,5 +1,6 @@
 """Console-script entry points (pyproject ``[project.scripts]``:
-``mcmctof-torch-simult-fit``, ``mcmctof-torch-csi-onebd``).
+``mcmctof-torch-simult-fit``, ``mcmctof-torch-csi-onebd``,
+``mcmctof-torch-ppc``, ``mcmctof-torch-plot-chain``).
 
 Each CLI's ``main()`` returns its result dict so tests and library
 callers can assert on it; a console script ``sys.exit()``s the return
@@ -15,4 +16,14 @@ def simult_fit() -> None:
 
 def csi_onebd() -> None:
     from . import csi_onebd as m
+    m.main()
+
+
+def ppc() -> None:
+    from . import ppc as m
+    m.main()
+
+
+def plot_chain() -> None:
+    from . import plot_chain as m
     m.main()

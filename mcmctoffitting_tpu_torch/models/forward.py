@@ -348,9 +348,11 @@ class TofForward(torch.nn.Module):
                 self.rk4 = rk4_constants(
                     spec.stopping, spec.x_binning.centers, spec.rk4_substeps,
                     bethe=tables.bethe)
-            else:
-                self.register_buffer(
-                    "table_coeffs", spec.stopping_table.coeffs_tensor(device))
+        if spec.transport == "table":
+            # the lookup of 'taylor' and 'exact', and of ``transport`` on
+            # every xs_mode (the PPC's transit times)
+            self.register_buffer(
+                "table_coeffs", spec.stopping_table.coeffs_tensor(device))
         if spec.cell_attenuation:
             self.register_buffer("atten", _f32(
                 cell_attenuation_coeffs(spec.x_binning.centers), device))
@@ -429,14 +431,17 @@ class TofForward(torch.nn.Module):
     # --- the mc estimator -----------------------------------------------
 
     def sample_beam_energies(self, params: torch.Tensor,
-                             generator: torch.Generator) -> torch.Tensor:
+                             generator: torch.Generator, *,
+                             n_runs: Optional[int] = None,
+                             n: Optional[int] = None) -> torch.Tensor:
         """N initial deuteron energies per walker and run, drawn on the
         params' device (seeded from the host ``generator``):
-        (W, 4) -> (W, R, N)."""
+        (W, 4) -> (W, R, N).  ``n_runs`` and ``n`` override the forward's
+        run count and ``spec.n_samples``."""
         spec = self.spec
-        u = draw_beam_uniforms((params.shape[0], self.n_runs,
-                                spec.n_samples), spec.truncated, generator,
-                               params.device)
+        u = draw_beam_uniforms((params.shape[0], n_runs or self.n_runs,
+                                n or spec.n_samples), spec.truncated,
+                               generator, params.device)
         return beam_energies_from_uniforms(u, params[:, 0], params[:, 1],
                                            params[:, 2], params[:, 3],
                                            spec.truncated)
@@ -515,13 +520,17 @@ class TofForward(torch.nn.Module):
                 self.spec.truncated)[:, None].expand_as(e0_means)
         return grids, e0_means
 
+    def pdf_grid(self, grids: torch.Tensor) -> torch.Tensor:
+        """Grids (..., M, Be) normalised to a density over the (x, eD)
+        area."""
+        return grids / (torch.sum(grids, dim=(-2, -1), keepdim=True)
+                        * self.area)
+
     def lattice(self, grids: torch.Tensor, e0_means: torch.Tensor):
         """Draw counts and TOF of every (x, eD) lattice cell:
         ((W, R or 1, M, Be), (W, R)) -> (base_tof, draws), both
         (W, R, M, Be)."""
-        grids = grids / (torch.sum(grids, dim=(-2, -1), keepdim=True)
-                         * self.area)
-        draws = grids * self.spec.n_samples
+        draws = self.pdf_grid(grids) * self.spec.n_samples
         if self.spec.rint_draws:
             draws = torch.round(draws)
         base_tof = self.cell_tof_lattice(e0_means)
@@ -554,13 +563,16 @@ class TofForward(torch.nn.Module):
         return tof_hist_segments(base_tof, draws, self.zt, self.zw, self.win)
 
     def shape_spectra(self, hist: torch.Tensor, scales: torch.Tensor,
-                      background: Optional[torch.Tensor] = None):
-        """TOF sums (W, R, n_pad) -> model spectra: density normalisation,
-        for 'expo' the causal kernel and the padding bins re-zeroed, the
-        beam-timing convolution, the run scales (W, R) and the
-        ``background`` (W, R, n_pad) where there is one."""
-        hist = hist / (torch.sum(hist, dim=-1, keepdim=True)
-                       * self.bin_widths)
+                      background: Optional[torch.Tensor] = None, *,
+                      get_pdf: bool = True):
+        """TOF sums (W, R, n_pad) -> model spectra: density normalisation
+        (``get_pdf``; else the raw sums), for 'expo' the causal kernel and
+        the padding bins re-zeroed, the beam-timing convolution, the run
+        scales (W, R) and the ``background`` (W, R, n_pad) where there is
+        one."""
+        if get_pdf:
+            hist = hist / (torch.sum(hist, dim=-1, keepdim=True)
+                           * self.bin_widths)
         if self.spec.zero_degree == "expo":
             # the causal tail bleeds into the padding bins: re-zero them so
             # that the 'same' beam-timing convolution sees each run's own
@@ -573,24 +585,84 @@ class TofForward(torch.nn.Module):
 
     def spectra(self, base_tof: torch.Tensor, draws: torch.Tensor,
                 scales: torch.Tensor,
-                background: Optional[torch.Tensor] = None):
-        """TOF stage: lattice -> (W, R, n_pad) density spectra times the
-        run scales (W, R), plus the ``background`` (W, R, n_pad) where
-        there is one; zero past each run's n_bins."""
+                background: Optional[torch.Tensor] = None, *,
+                get_pdf: bool = True):
+        """TOF stage: lattice -> (W, R, n_pad) density spectra (``get_pdf``;
+        else the raw TOF sums) times the run scales (W, R), plus the
+        ``background`` (W, R, n_pad) where there is one; zero past each
+        run's n_bins."""
         return self.shape_spectra(self.tof_histogram(base_tof, draws),
-                                  scales, background)
+                                  scales, background, get_pdf=get_pdf)
 
     def tof_spectra_multi(self, params: torch.Tensor, scales: torch.Tensor,
                           generator: torch.Generator,
-                          bg_levels: Optional[torch.Tensor] = None):
+                          bg_levels: Optional[torch.Tensor] = None, *,
+                          get_pdf: bool = True, return_spectra: bool = False):
         """All runs of all walkers: beam parameters (W, 4), run scales
         (W, R) and background levels (W, R) or None -> (W, R, n_pad).  The
         host ``generator`` seeds first the grid's draw, then (only with a
-        Poisson background) the background's."""
+        Poisson background) the background's.  ``get_pdf=False`` keeps the
+        raw TOF sums (no density normalisation).  ``return_spectra`` returns
+        the tuple (spectra, normalised (x, eD) grids (W, R or 1, M, Be),
+        draw counts (W, R, M, Be))."""
         grids, e0_means = self.grid_and_mean(params, generator)
         base_tof, draws = self.lattice(grids, e0_means)
         background = (None if bg_levels is None
                       else self.background(bg_levels, generator))
-        return self.spectra(base_tof, draws, scales, background)
+        out = self.spectra(base_tof, draws, scales, background,
+                           get_pdf=get_pdf)
+        if return_spectra:
+            return out, self.pdf_grid(grids), draws
+        return out
 
     forward = tof_spectra_multi
+
+
+def single_run_spectrum(forward: TofForward, generator: torch.Generator,
+                        params, scale=1.0, bg_level=None, *,
+                        get_pdf: bool = False, return_spectra: bool = False):
+    """The spectrum of a one-run ``forward`` for every walker: ``params``
+    (W, 4); ``scale`` and ``bg_level`` numbers or (W,) tensors.  Returns
+    (W, n_bins), or with ``return_spectra`` the tuple (spectrum, normalised
+    (x, eD) grid (W, M, Be), draw counts (W, M, Be))."""
+    dev = forward.x.device
+    params = torch.as_tensor(params, dtype=torch.float32, device=dev)
+
+    def per_walker(v):
+        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
+        return v.expand(params.shape[:1])[:, None]
+
+    out = forward(params, per_walker(scale), generator,
+                  None if bg_level is None else per_walker(bg_level),
+                  get_pdf=get_pdf, return_spectra=return_spectra)
+    n_bins = forward.windows[0].n_bins
+    if return_spectra:
+        spectra, grids, draws = out
+        return spectra[:, 0, :n_bins], grids[:, 0], draws[:, 0]
+    return out[:, 0, :n_bins]
+
+
+def tof_spectrum(generator: torch.Generator, params, spec: ForwardSpec,
+                 standoff: float, window, *, get_pdf: bool = False,
+                 scale=1.0, bg_level=None, return_spectra: bool = False,
+                 device="cuda", tables: Optional[ForwardTables] = None):
+    """One run's model spectrum for every walker (the reference's
+    ``generateModelData``; the JAX package's ``tof_spectrum`` with a
+    leading walker axis).
+
+    ``params`` (W, 4) = (beamE, eLoss, scale, s); ``scale`` and
+    ``bg_level`` (the oneBD background: its expectation or one Poisson draw
+    per bin, ``spec.bg_mode``) are numbers or (W,) tensors; ``get_pdf``
+    density-normalises the TOF histogram before the timing convolution and
+    the scale.  Returns (W, n_bins), or with ``return_spectra`` the tuple
+    (spectrum, normalised (x, eD) grid (W, M, Be), draw counts (W, M,
+    Be)).  Builds a one-run :class:`TofForward` on ``device`` (the GPU
+    unless the caller asks for the CPU) and runs
+    :func:`single_run_spectrum`; a caller that evaluates one run many
+    times keeps its forward (``JointFitProblem.run_spectrum``).
+    """
+    fwd = TofForward(spec, (standoff,), (window,), device=device,
+                     tables=tables)
+    return single_run_spectrum(fwd, generator, params, scale, bg_level,
+                               get_pdf=get_pdf,
+                               return_spectra=return_spectra)

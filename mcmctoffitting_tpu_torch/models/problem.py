@@ -4,7 +4,8 @@ batched log-probability (box prior + per-run binned Poisson likelihoods).
 
 A problem class (``models/simult.py``, ``models/onebd.py``) adds its run
 layout, its parameter vector (``n_dim``, ``param_lo``/``param_hi``,
-``split_theta``) and its guesses (``guess_theta``, ``agitators``).
+``shared_params``, ``split_theta``) and its guesses (``guess_theta``,
+``agitators``).
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 from ..constants import TofWindow
 from ..ops.likelihoods import (box_lnprior, poisson_binned_loglike,
                                poisson_logpmf_loglike)
-from .forward import ForwardSpec, ForwardTables, TofForward, resolve_device
+from .forward import (ForwardSpec, ForwardTables, TofForward, resolve_device,
+                      single_run_spectrum)
 
 
 class ObservedRuns(NamedTuple):
@@ -39,8 +41,8 @@ class JointFitProblem:
 
     A subclass sets ``RUN_LAYOUT`` (run index -> standoff and window
     name) and ``WINDOWS`` (name -> ``TofWindow``), and defines ``n_dim``,
-    ``param_lo``, ``param_hi``, ``split_theta``, ``guess_theta`` and
-    ``agitators``.
+    ``param_lo``, ``param_hi``, ``shared_params``, ``split_theta``,
+    ``guess_theta`` and ``agitators``.
     """
 
     RUN_LAYOUT: tuple = ()
@@ -115,6 +117,28 @@ class JointFitProblem:
         (W, R, n_pad)."""
         params, scales, bg_levels = self.split_theta(thetas)
         return self.forward(params, scales, generator, bg_levels)
+
+    def _run_forward(self, run: int) -> TofForward:
+        """The forward of run ``run`` alone (built once per run)."""
+        forwards = self.__dict__.setdefault("_run_forwards", {})
+        if run not in forwards:
+            forwards[run] = TofForward(
+                self.spec, self.standoffs[run:run + 1],
+                self.windows[run:run + 1], device=self.device,
+                tables=self._tables)
+        return forwards[run]
+
+    def run_spectrum(self, generator: torch.Generator, thetas: torch.Tensor,
+                     run: int, *, get_pdf: bool = True) -> torch.Tensor:
+        """One run's model spectrum (the reference's ``generateModelData``
+        for that run; ``models.forward.single_run_spectrum`` on this
+        problem's parameters): (W, D) -> (W, n_bins), its own draws from
+        the host ``generator``."""
+        params, scales, bg_levels = self.split_theta(thetas)
+        return single_run_spectrum(
+            self._run_forward(run), generator, params, scales[:, run],
+            None if bg_levels is None else bg_levels[:, run],
+            get_pdf=get_pdf)
 
     def log_like(self, thetas, generator, observed: ObservedRuns):
         """Joint log-likelihood alone, (W, D) -> (W,): per-run binned

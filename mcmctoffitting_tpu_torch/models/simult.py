@@ -127,10 +127,15 @@ class SimultFitProblem(JointFitProblem):
         return np.concatenate([PARAM_HI_SHARED,
                                np.full(self.n_runs, SCALE_HI)])
 
+    def shared_params(self, thetas: torch.Tensor) -> torch.Tensor:
+        """(beamE, eLoss, scale, s): (..., D) -> (..., 4)."""
+        return thetas[..., :4]
+
     def split_theta(self, thetas: torch.Tensor):
         """(W, D) -> (beam parameters (W, 4), run scales (W, R), no
         background)."""
-        return thetas[:, :4], thetas[:, 4:4 + self.n_runs], None
+        return (self.shared_params(thetas), thetas[:, 4:4 + self.n_runs],
+                None)
 
     def guess_theta(self, observed) -> np.ndarray:
         """Shared guesses + per-run scale = observed totals."""

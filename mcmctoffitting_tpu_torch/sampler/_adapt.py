@@ -14,6 +14,8 @@ from typing import Callable
 
 import torch
 
+from ..models.forward import resolve_device
+
 _GAMMA = 0.05
 _T0 = 10.0
 _KAPPA = 0.75
@@ -46,7 +48,7 @@ class LogpAndGrad:
 
 def dual_averaging_warmup(state, one_step: Callable, n_warmup: int,
                           init_step_size: float, target_accept: float, *,
-                          device="cpu"):
+                          device="cuda"):
     """Adapt the step size over ``n_warmup`` iterations.
 
     ``one_step(state, step_size) -> (state, alpha)`` advances the sampler
@@ -55,8 +57,11 @@ def dual_averaging_warmup(state, one_step: Callable, n_warmup: int,
     adaptation.  A non-finite alpha (a divergent trajectory's NaN
     Hamiltonian) counts as 0, so the step size shrinks.
 
+    ``device`` is the GPU unless the caller asks for the CPU.
+
     Returns (warmed state, adapted step size as a float32 0-dim tensor).
     """
+    device = resolve_device(device)
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
 

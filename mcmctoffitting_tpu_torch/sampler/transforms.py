@@ -19,12 +19,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models.forward import resolve_device
+
 
 class BoxLogitTransform:
     """u in R^D <-> theta in (lo, hi), with the exact log-Jacobian.  The
-    bounds are float32 tensors on ``device``."""
+    bounds are float32 tensors on ``device``: the GPU unless the caller
+    asks for the CPU."""
 
-    def __init__(self, lo, hi, *, device="cpu"):
+    def __init__(self, lo, hi, *, device="cuda"):
+        device = resolve_device(device)
         lo = np.asarray(lo, np.float32)
         hi = np.asarray(hi, np.float32)
         if not np.all(hi > lo):

@@ -12,13 +12,15 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.forward import resolve_device
+
 
 def minimize_nll(logp_fn: Callable, x0, *,
                  generator: Optional[torch.Generator] = None,
                  method: str = "Nelder-Mead",
                  bounds: Optional[Sequence] = None, tol: float | None = None,
                  maxiter: int | None = None, eps: float = 1e-3,
-                 device="cpu"):
+                 device="cuda"):
     """Minimise -logp with SciPy (TNC / Nelder-Mead / SLSQP / ...).
 
     Every evaluation starts ``generator`` from the same state (common
@@ -27,9 +29,13 @@ def minimize_nll(logp_fn: Callable, x0, *,
     the optimiser runs in unit-box coordinates z = (x - lo) / (hi - lo)
     (the parameters span five decades, and SciPy's finite differences use
     one absolute step); ``eps`` is that step in z units.  lo == hi pins a
-    parameter.  A non-finite objective reads as 1e30.
+    parameter.  A non-finite objective reads as 1e30.  ``device`` is
+    where theta is handed to ``logp_fn``: the GPU unless the caller asks
+    for the CPU.
     """
     from scipy import optimize as sopt
+
+    device = resolve_device(device)
 
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -72,11 +78,13 @@ def minimize_nll(logp_fn: Callable, x0, *,
 
 def adam_map(logp_fn: Callable, x0, *,
              generator: Optional[torch.Generator] = None, steps: int = 500,
-             learning_rate: float = 1e-2, device="cpu"):
+             learning_rate: float = 1e-2, device="cuda"):
     """Gradient-based MAP for a differentiable (deterministic) log-prob:
     ``torch.optim.Adam``, whose defaults (betas 0.9 / 0.999, eps 1e-8) are
     optax's.  Returns (theta as a numpy array, the last loss: -logp at the
-    point before the last update), as the JAX package does."""
+    point before the last update), as the JAX package does.  Theta lives
+    on ``device``: the GPU unless the caller asks for the CPU."""
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     x = torch.tensor(np.asarray(x0, np.float32), device=device,

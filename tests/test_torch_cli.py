@@ -15,8 +15,14 @@ F = 128, 2 runs for simultFit).
   note, ``-quitEarly`` stops after set-up, ``-shiftTOF`` shifts as the
   JAX CLI does, ``-chunkWalkers`` with 'expected' equals the unchunked
   fit, and the default device is the GPU.
+* Post-processing: ``-profile DIR`` writes a trace on both fit CLIs;
+  ``cli.ppc`` writes the JAX CLI's file set from one chain (and refuses
+  ``-model csi2016`` until its slice); ``cli.plot_chain`` prints the JAX
+  CLI's lines; the figures of the fit CLIs are drawn, or without
+  matplotlib one line says so, and any other plotting error fails.
 """
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -25,6 +31,8 @@ import torch
 
 from mcmctoffitting_tpu.cli import _driver as jdriver
 from mcmctoffitting_tpu.cli import csi_onebd as jcli_onebd
+from mcmctoffitting_tpu.cli import plot_chain as jcli_plot_chain
+from mcmctoffitting_tpu.cli import ppc as jcli_ppc
 from mcmctoffitting_tpu.cli import simult_fit as jcli_simult
 from mcmctoffitting_tpu.models import onebd as jonebd
 from mcmctoffitting_tpu.models import simult as jsimult
@@ -32,6 +40,8 @@ from mcmctoffitting_tpu.utils import chain_io as jchain_io
 from mcmctoffitting_tpu.utils import data_io as jdata_io
 from mcmctoffitting_tpu_torch.cli import _driver as tdriver
 from mcmctoffitting_tpu_torch.cli import csi_onebd as tcli_onebd
+from mcmctoffitting_tpu_torch.cli import plot_chain as tcli_plot_chain
+from mcmctoffitting_tpu_torch.cli import ppc as tcli_ppc
 from mcmctoffitting_tpu_torch.cli import simult_fit as tcli_simult
 from mcmctoffitting_tpu_torch.models import onebd as tonebd
 from mcmctoffitting_tpu_torch.models import simult as tsimult
@@ -306,8 +316,7 @@ def test_every_jax_flag_parses(model):
     assert defaults == jdefaults
 
 
-@pytest.mark.parametrize("argv,slice_", [
-    (["-mesh", "2"], "slice 8"), (["-profile", "trace_dir"], "slice 7")])
+@pytest.mark.parametrize("argv,slice_", [(["-mesh", "2"], "slice 8")])
 @pytest.mark.parametrize("model", ["simult", "onebd"])
 def test_later_slices_raise_not_ported(model, argv, slice_):
     cli = tcli_simult if model == "simult" else tcli_onebd
@@ -411,3 +420,178 @@ def test_converge_main_checks_tau_on_the_jax_schedule(tmp_path, monkeypatch,
                if line.startswith("main: converged at step")]
     assert n_steps == (stopped[0] if stopped else 160)
     assert np.isfinite(out["walker_steps_per_sec"])
+
+
+# --- post-processing: -profile, cli.ppc, cli.plot_chain, the figures -------
+
+DEBUG = ["-device", "cpu", "-debug", "1", "-batch", "1",
+         "-nDrawsPerEval", "4000", "-fineGrid", "64"]
+
+
+@pytest.mark.parametrize("model", ["simult", "onebd"])
+def test_profile_writes_a_trace(model, tmp_path, monkeypatch, capsys):
+    """-profile DIR: the sampling phases under torch.profiler, a Chrome
+    trace in DIR and the JAX CLI's line."""
+    import json
+    monkeypatch.chdir(tmp_path)
+    cli = tcli_simult if model == "simult" else tcli_onebd
+    extra = ["-nRuns", "2"] if model == "simult" else []
+    cli.main(DEBUG + extra + ["-profile", "trace_dir"])
+    assert "profiler trace written to trace_dir" in capsys.readouterr().out
+    trace = json.loads((tmp_path / "trace_dir" / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("scatter_add" in n for n in names)   # the fine-cell moments
+
+
+def test_profiling_helpers(tmp_path):
+    """utils/profiling.py: ``trace`` writes a Chrome trace of the block,
+    ``Throughput`` counts walker-steps per second, ``time_fn`` times the
+    first call apart from the steady state."""
+    import json
+    import time
+
+    from mcmctoffitting_tpu_torch.utils import profiling
+    with profiling.trace(str(tmp_path / "t")) as where:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert where == str(tmp_path / "t")
+    events = json.loads((tmp_path / "t" / profiling.TRACE_FILE).read_text())
+    assert any("mm" in e.get("name", "") for e in events["traceEvents"])
+    meter = profiling.Throughput(n_walkers=8)
+    time.sleep(0.01)
+    assert meter.update(5) > 0 and meter.steps == 5
+    calls = []
+    out = profiling.time_fn(lambda x: calls.append(x) or torch.ones(3), 2,
+                            n_iters=4)
+    assert set(out) == {"first_s", "steady_s"} and len(calls) == 5
+    assert out["first_s"] >= 0 and out["steady_s"] >= 0
+
+
+def _fake_chain(path, n_steps=10, n_walkers=8, n_params=6, seed=0):
+    """A simultFit-like chain near the guess point, written as emcee
+    text."""
+    rng = np.random.default_rng(seed)
+    center = np.array([1878.4, 850.0, 170.0, 0.5, 5e4, 5e4])[:n_params]
+    scales = np.array([5.0, 20.0, 10.0, 0.05, 2e3, 2e3])[:n_params]
+    chain = center + scales * rng.standard_normal(
+        (n_steps, n_walkers, n_params))
+    probs = -1000.0 + rng.standard_normal((n_steps, n_walkers))
+    tchain_io.append_chain_text(str(path), chain, probs)
+    return str(path)
+
+
+def test_ppc_cli_writes_the_jax_file_set(tmp_path, monkeypatch, capsys):
+    """The same flags on one chain: the port's CLI (-device cpu) writes
+    the JAX CLI's files, (3, n_bins) bands and an SDEF card of one entry
+    per neutron energy, and prints its lines."""
+    chain = _fake_chain(tmp_path / "mainchain.dat")
+    argv = ["-chainFilename", chain, "-nRuns", "2", "-nSamplesFromTOF",
+            "4000", "-nChainEntries", "4"]
+    files = {}
+    for name, main, extra in (("jax", jcli_ppc.main, []),
+                              ("port", tcli_ppc.main, ["-device", "cpu"])):
+        where = tmp_path / name
+        where.mkdir()
+        monkeypatch.chdir(where)
+        out = main(argv + extra)
+        files[name] = sorted(os.listdir(where))
+        text = capsys.readouterr().out
+        assert "chain: 10 steps x 8 walkers x 6 params" in text
+        assert "wrote ppc_sdef.txt" in text and "wrote PPC plots" in text
+    assert files["port"] == files["jax"]
+    assert {"ppc_run0_bands.txt", "ppc_run1_bands.txt", "ppc_sdef.txt",
+            "ppc_corner.png"} <= set(files["port"])
+    windows = _port_problem("simult", ["-nRuns", "2"]).windows
+    for run, win in enumerate(windows):
+        bands = np.loadtxt(tmp_path / "port" / f"ppc_run{run}_bands.txt")
+        assert bands.shape == (3, win.n_bins) and np.isfinite(bands).all()
+        assert np.all(bands[0] <= bands[1]) and np.all(bands[1] <= bands[2])
+    si, sp = (tmp_path / "port" / "ppc_sdef.txt").read_text().splitlines()
+    n_en = tsimult.default_spec(4000).ed_binning.n
+    assert si.startswith("si100 a") and len(si.split()) == 2 + n_en
+    assert sp.startswith("sp100") and len(sp.split()) == 1 + n_en
+    assert out["sdef"] == {"si": si, "sp": sp} and out["n_draws"] == 4
+
+
+def test_ppc_cli_refusals(tmp_path, monkeypatch):
+    """-model csi2016 waits for models/csi2016.py (slice 5); a missing
+    chain file is the JAX CLI's one-line error; the default device is the
+    GPU."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tcli_ppc.main(["-chainFilename", "x.dat", "-model", "csi2016",
+                       "-device", "cpu"])
+    with pytest.raises(SystemExit, match="chain file not found"):
+        tcli_ppc.main(["-chainFilename", "missing.dat", "-device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        tcli_ppc.main(["-chainFilename", "missing.dat"])
+
+
+def test_plot_chain_prints_the_jax_lines(tmp_path, monkeypatch, capsys):
+    """The same chain: the same summary lines (the port's diagnostics are
+    the JAX package's) and the same figure files."""
+    chain = _fake_chain(tmp_path / "chain.dat", n_steps=12, n_params=2)
+    files, texts = {}, {}
+    for name, main in (("jax", jcli_plot_chain.main),
+                       ("port", tcli_plot_chain.main)):
+        where = tmp_path / name
+        where.mkdir()
+        monkeypatch.chdir(where)
+        out = main(["-filename", chain, "-paramNames", "beamE,eLoss"])
+        texts[name] = capsys.readouterr().out
+        files[name] = sorted(os.listdir(where))
+        assert out == {"n_steps": 12, "n_walkers": 8, "n_params": 2}
+    assert texts["port"] == texts["jax"]
+    assert "diagnostics:" in texts["port"]
+    assert "wrote plots with prefix chain_" in texts["port"]
+    assert files["port"] == files["jax"] and "chain_corner.png" in files[
+        "port"]
+
+
+def test_fit_figures_or_the_missing_matplotlib_line(tmp_path, monkeypatch,
+                                                    capsys):
+    """Without -batch the fit CLIs draw the -checkLikelihoodEval overlay
+    of every run and the trace plot after a fit; without matplotlib each
+    figure prints the one line that names it and the run goes on."""
+    import sys
+    monkeypatch.chdir(tmp_path)
+    argv = ["-device", "cpu", "-debug", "1", "-nRuns", "2",
+            "-nDrawsPerEval", "4000", "-fineGrid", "64"]
+    tcli_simult.main(argv + ["-checkLikelihoodEval", "1"])
+    tcli_simult.main(argv)
+    assert {"likelihoodCheck_run0.png", "likelihoodCheck_run1.png",
+            "runSampleChainsOut.png"} <= set(os.listdir(tmp_path))
+    assert "plotting skipped" not in capsys.readouterr().out
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    where = tmp_path / "no_matplotlib"
+    where.mkdir()
+    monkeypatch.chdir(where)
+    tcli_simult.main(argv + ["-checkLikelihoodEval", "1"])
+    tcli_simult.main(argv)
+    text = capsys.readouterr().out
+    assert text.count("plotting skipped: matplotlib is not installed") == 3
+    assert not [f for f in os.listdir(where) if f.endswith(".png")]
+
+
+def test_other_plotting_errors_fail_the_run(tmp_path, monkeypatch):
+    """Only matplotlib's ImportError is caught: another module's, or any
+    other error of a figure, propagates."""
+    def missing_other():
+        raise ModuleNotFoundError("No module named 'scipy'", name="scipy")
+
+    def broken():
+        raise ValueError("bad figure")
+
+    monkeypatch.chdir(tmp_path)
+    assert tdriver.draw_figure(lambda: None) is True
+    with pytest.raises(ModuleNotFoundError, match="scipy"):
+        tdriver.draw_figure(missing_other)
+    with pytest.raises(ValueError, match="bad figure"):
+        tdriver.draw_figure(broken)
+    # a fit's figure that fails stops the fit
+    monkeypatch.setattr(tdriver.plotting, "trace_plot",
+                        lambda *a, **k: broken())
+    with pytest.raises(ValueError, match="bad figure"):
+        tcli_simult.main(["-device", "cpu", "-debug", "1", "-nRuns", "1",
+                          "-nDrawsPerEval", "2000", "-fineGrid", "64",
+                          "-nBurninSteps", "2", "-nMainSteps", "2"])

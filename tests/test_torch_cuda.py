@@ -613,3 +613,86 @@ def test_nuts_cli_on_the_card(dev, tmp_path, monkeypatch):
     assert all(np.all(np.isfinite(v)) for v in out["quantiles"].values())
     chain, _, d, w, s = chain_io.read_chain_text("mainchain.dat")
     assert (s, w, d) == (10, 16, 6)
+
+
+def _ppc_on(problem, thetas, e_runs, e_grid, seed):
+    """``PPCSampler.generate`` of a one-theta-per-row chain with the beam
+    draws replaced by the given initial energies (moved to the problem's
+    device): e_runs (n, R, N) for the spectra, e_grid (n, 1, N) for the
+    weight grids."""
+    from mcmctoffitting_tpu_torch.utils.ppc import PPCSampler
+    dev = problem.device
+
+    def energies(params, generator, n_runs=None, n=None):
+        return (e_grid if n_runs == 1 else e_runs).to(dev)
+
+    problem.forward.sample_beam_energies = energies
+    sampler = PPCSampler(problem, thetas[None], n_steps_to_include=1)
+    sampler.draw_thetas = lambda generator, n, cut=None: thetas
+    return sampler.generate(torch.Generator().manual_seed(seed),
+                            thetas.shape[0])
+
+
+@pytest.mark.parametrize("model", ["simult", "onebd"])
+def test_ppc_core_gpu_vs_cpu(dev, model):
+    """The PPC's batched forward on the card against the CPU's, the same
+    thetas and initial energies on both (oneBD: the same background seed,
+    kernel K1 against its plain version): every run's spectra and the
+    weight grids within 1e-4 relative L1 per row; K2 launched once, K1
+    once on oneBD."""
+    from mcmctoffitting_tpu_torch.models import onebd, simult
+    from mcmctoffitting_tpu_torch.utils import data_io
+    n, n_draws = 8, 50_000
+    if model == "simult":
+        spec = simult.default_spec(n_draws)
+        make = lambda d: simult.SimultFitProblem(spec, 4, device=d)  # noqa
+        truth = np.concatenate([simult.GUESS_SHARED, np.full(4, 5e4)])
+    else:
+        spec = onebd.default_spec(n_draws)
+        make = lambda d: onebd.OneBDProblem(spec, device=d)  # noqa
+        truth = data_io.ONEBD_TRUTH
+    card, cpu = make(dev), make("cpu")
+    obs = data_io.synthesize_observed(0, cpu, truth)
+    thetas = cpu.initial_walkers_from_observed(
+        torch.Generator().manual_seed(1), n, obs).numpy()
+    params = cpu.shared_params(torch.as_tensor(thetas))
+    gen = torch.Generator().manual_seed(2)
+    e_runs = cpu.forward.sample_beam_energies(params, gen)
+    e_grid = cpu.forward.sample_beam_energies(params, gen, n_runs=1)
+    poisson.launches = tof_hist_segments.launches = 0
+    got = _ppc_on(card, thetas, e_runs, e_grid, 3)
+    torch.cuda.synchronize()
+    assert tof_hist_segments.launches == 1
+    assert poisson.launches == (1 if model == "onebd" else 0)
+    want = _ppc_on(cpu, thetas, e_runs, e_grid, 3)
+
+    def rel_l1(a, b):
+        a, b = a.reshape(n, -1), b.reshape(n, -1)
+        return (np.abs(a - b).sum(-1) / np.abs(b).sum(-1)).max()
+
+    for g, w in zip(got.tof_spectra, want.tof_spectra):
+        assert np.isfinite(g).all() and rel_l1(g, w) <= 1e-4
+    assert rel_l1(got.neutron_spectra, want.neutron_spectra) <= 1e-4
+
+
+def test_ppc_cli_on_the_card(dev, tmp_path, monkeypatch):
+    """cli.ppc on the card on a small chain: bands and SDEF card, K2 once
+    per chunk of draws, K3 and K4 never."""
+    from mcmctoffitting_tpu_torch.cli import ppc
+    from mcmctoffitting_tpu_torch.utils import chain_io
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(0)
+    chain = (np.array([1878.4, 850.0, 170.0, 0.5, 5e4, 5e4, 5e4, 5e4])
+             * (1 + 1e-3 * rng.standard_normal((10, 16, 8))))
+    chain_io.append_chain_text("chain.dat", chain, -rng.random((10, 16)))
+    for fn in (tof_hist_segments, cuda_hist.weighted_histogram,
+               cuda_transport.transport_moments):
+        fn.launches = 0
+    ppc.main(["-chainFilename", "chain.dat", "-nChainEntries", "200"])
+    torch.cuda.synchronize()
+    assert tof_hist_segments.launches == 2          # 128 + 72 draws
+    assert cuda_hist.weighted_histogram.launches == 0
+    assert cuda_transport.transport_moments.launches == 0
+    bands = np.loadtxt("ppc_run0_bands.txt")
+    assert bands.shape == (3, tof_windows["mid"].n_bins)
+    assert np.isfinite(bands).all() and np.all(bands[0] <= bands[2])

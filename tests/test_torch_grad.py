@@ -243,7 +243,7 @@ HI = np.array([1925.0, 1000.0, 1.0e6], np.float32)
 def test_box_logit_transform_matches_jax():
     rng = np.random.default_rng(5)
     u = rng.normal(0.0, 3.0, (6, 3)).astype(np.float32)
-    jt, tt = JBoxLogit(LO, HI), BoxLogitTransform(LO, HI)
+    jt, tt = JBoxLogit(LO, HI), BoxLogitTransform(LO, HI, device="cpu")
     tu = torch.as_tensor(u)
     np.testing.assert_allclose(tt.to_theta(tu).numpy(),
                                np.asarray(jt.to_theta(jnp.asarray(u))),
@@ -277,7 +277,7 @@ def test_box_logit_transform_matches_jax():
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-4,
                                atol=1e-5)
     with pytest.raises(ValueError):
-        BoxLogitTransform([0.0, 1.0], [1.0, 1.0])
+        BoxLogitTransform([0.0, 1.0], [1.0, 1.0], device="cpu")
 
 
 def test_dual_averaging_matches_jax_on_a_scripted_sequence():
@@ -298,13 +298,14 @@ def test_dual_averaging_matches_jax_on_a_scripted_sequence():
 
     _, eps_j = j_dual_averaging(jax.random.PRNGKey(0), jnp.int32(0), j_step,
                                 40, 0.1, 0.8)
-    n, eps_t = dual_averaging_warmup(0, t_step, 40, 0.1, 0.8)
+    n, eps_t = dual_averaging_warmup(0, t_step, 40, 0.1, 0.8, device="cpu")
     assert n == 40
     np.testing.assert_allclose(float(eps_t), float(eps_j), rtol=1e-5)
     # no warm-up: the initial step size, as the JAX package returns it
     _, eps0_j = j_dual_averaging(jax.random.PRNGKey(0), jnp.int32(0),
                                  j_step, 0, 0.1, 0.8)
-    _, eps0 = dual_averaging_warmup(0, t_step, 0, 0.1, 0.8)
+    _, eps0 = dual_averaging_warmup(0, t_step, 0, 0.1, 0.8,
+                                    device="cpu")
     np.testing.assert_allclose(float(eps0), float(eps0_j), rtol=1e-6)
     np.testing.assert_allclose(float(eps0), 0.1, rtol=1e-6)
 
@@ -367,7 +368,7 @@ def test_adam_map_matches_jax():
                          np.zeros(3), steps=40, learning_rate=0.05)
     x_t, loss_t = t_adam(lambda t, g: -torch.sum(
         torch.as_tensor(w) * (t - torch.as_tensor(c)) ** 2), np.zeros(3),
-        steps=40, learning_rate=0.05)
+        steps=40, learning_rate=0.05, device="cpu")
     np.testing.assert_allclose(x_t, x_j, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(loss_t, loss_j, rtol=1e-4)
 
@@ -385,11 +386,39 @@ def test_minimize_nll_with_common_random_numbers():
 
     gen = torch.Generator().manual_seed(3)
     res = minimize_nll(logp, np.zeros(3), generator=gen, method="L-BFGS-B",
-                       bounds=[(-5.0, 5.0)] * 3)
+                       bounds=[(-5.0, 5.0)] * 3, device="cpu")
     np.testing.assert_allclose(res.x, c.numpy(), atol=2e-2)
     res = minimize_nll(logp, np.zeros(3), generator=gen,
-                       method="Nelder-Mead", tol=1e-8)
+                       method="Nelder-Mead", tol=1e-8, device="cpu")
     np.testing.assert_allclose(res.x, c.numpy(), atol=1e-3)
+
+
+def _default_device_calls():
+    """Each of the four optimiser and sampler helpers, called with its
+    default device."""
+    from mcmctoffitting_tpu_torch.utils.optimize import adam_map, minimize_nll
+
+    def logp(theta, generator):
+        return -torch.sum(theta ** 2)
+
+    return {
+        "minimize_nll": lambda: minimize_nll(logp, np.zeros(2), maxiter=2),
+        "adam_map": lambda: adam_map(logp, np.zeros(2), steps=1),
+        "BoxLogitTransform": lambda: BoxLogitTransform(LO, HI),
+        "dual_averaging_warmup": lambda: dual_averaging_warmup(
+            0, lambda i, eps: (i + 1, torch.ones(2)), 1, 0.1, 0.8),
+    }
+
+
+@pytest.mark.parametrize("name", ["minimize_nll", "adam_map",
+                                  "BoxLogitTransform",
+                                  "dual_averaging_warmup"])
+def test_default_device_is_the_gpu(name, monkeypatch):
+    """Called without a device, each runs on the GPU: without one it
+    raises, and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        _default_device_calls()[name]()
 
 
 

@@ -48,13 +48,17 @@ NEW_MODULES = ("cli._driver", "cli._entry", "cli.simult_fit",
                "cli.csi_onebd", "ops.fixed_point", "utils.chain_io",
                "utils.diagnostics", "utils.data_io", "utils.native",
                "sampler.transforms", "sampler._adapt", "sampler.hmc",
-               "sampler.nuts", "utils.optimize")
+               "sampler.nuts", "utils.optimize", "utils.ppc", "cli.ppc",
+               "utils.plotting", "cli.plot_chain", "utils.profiling",
+               "compat", "compat.emcee")
 
 
 def test_every_module_is_among_those_imported():
     """The walk above reaches the drivers, chain I/O, diagnostics, the
     native codec's bindings (which build nothing at import), the gradient
-    samplers and the optimisers."""
+    samplers, the optimisers, and the post-processing modules (PPC,
+    plotting, which imports no matplotlib until it draws, plot_chain,
+    profiling, the emcee shim)."""
     import pkgutil
 
     import mcmctoffitting_tpu_torch as pkg
@@ -92,18 +96,60 @@ def test_cli_entry_runs_without_the_jax_package(cli, tmp_path):
     assert "quitEarly: setup complete" in proc.stdout
 
 
+_RUN_POST = """
+import sys
+for blocked in ('jax', 'triton', 'mcmctoffitting_tpu', 'matplotlib'):
+    sys.modules[blocked] = None
+import numpy as np
+from mcmctoffitting_tpu_torch.cli import plot_chain, ppc
+from mcmctoffitting_tpu_torch.utils import chain_io
+rng = np.random.default_rng(0)
+chain = (np.array([1878.4, 850.0, 170.0, 0.5, 5e4, 5e4])
+         * (1 + 1e-3 * rng.standard_normal((10, 4, 6))))
+chain_io.append_chain_text('chain.dat', chain, -rng.random((10, 4)))
+ppc.main(['-chainFilename', 'chain.dat', '-device', 'cpu', '-nRuns', '2',
+          '-nSamplesFromTOF', '2000', '-nChainEntries', '2'])
+plot_chain.main(['-filename', 'chain.dat'])
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and m.split('.')[0] in ('jax', 'jaxlib', 'triton',
+                                  'mcmctoffitting_tpu', 'matplotlib')]
+assert not loaded, loaded
+"""
+
+
+def test_post_processing_clis_run_without_jax_or_matplotlib(tmp_path):
+    """cli.ppc and cli.plot_chain with jax, the JAX package and matplotlib
+    blocked (the card's machine has no matplotlib): the files of the PPC,
+    the diagnostics, and for each CLI's figures the one line that says
+    matplotlib is missing."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _RUN_POST], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count(
+        "plotting skipped: matplotlib is not installed") == 2
+    assert "wrote ppc_sdef.txt" in proc.stdout
+    assert "diagnostics:" in proc.stdout
+    assert {"ppc_run0_bands.txt", "ppc_run1_bands.txt",
+            "ppc_sdef.txt"} <= set(os.listdir(tmp_path))
+
+
 def test_console_scripts_do_not_collide():
-    """pyproject names the port's two scripts beside the JAX package's."""
+    """pyproject names the port's four scripts beside the JAX package's."""
     import tomllib
     scripts = tomllib.loads((REPO / "pyproject.toml").read_text())[
         "project"]["scripts"]
-    assert scripts["mcmctof-torch-simult-fit"] == \
-        "mcmctoffitting_tpu_torch.cli._entry:simult_fit"
-    assert scripts["mcmctof-torch-csi-onebd"] == \
-        "mcmctoffitting_tpu_torch.cli._entry:csi_onebd"
-    assert len(set(scripts)) == len(scripts) == 9
+    entries = {"mcmctof-torch-simult-fit": "simult_fit",
+               "mcmctof-torch-csi-onebd": "csi_onebd",
+               "mcmctof-torch-ppc": "ppc",
+               "mcmctof-torch-plot-chain": "plot_chain"}
     from mcmctoffitting_tpu_torch.cli import _entry
-    assert callable(_entry.simult_fit) and callable(_entry.csi_onebd)
+    for script, fn in entries.items():
+        assert scripts[script] == \
+            f"mcmctoffitting_tpu_torch.cli._entry:{fn}"
+        assert callable(getattr(_entry, fn))
+    assert len(set(scripts)) == len(scripts) == 11
 
 
 def test_kernel_modules_import_without_nvcc():
