@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (mcmctoffitting_tpu_torch) on one
 NVIDIA GPU: builds the CUDA kernels from csrc/, holds each against its
-plain PyTorch version at the forward model's shapes, times both beside
+plain PyTorch version at the forward models' shapes, times both beside
 their bounds, and drives the fits through the library's entry points at
-full width (256 walkers x 200k draws, DE move).  simultFit (4 runs): the
-counts estimator (F = 512), the mc estimator on the literal ODE path
-(transport='rk4') with xs_mode 'taylor' and 'exact', the default mc
-estimator on the stopping table (e0grid, F = 256) and the 'expected'
+full width (256 walkers x 200k draws, DE move); then the simple family,
+the template unfolding and the csi2016 PPC through their CLIs.
+simultFit (4 runs): the counts estimator (F = 512), the mc estimator on
+the literal ODE path (transport='rk4') with xs_mode 'taylor' and
+'exact', the default mc estimator on the stopping table (e0grid, F = 256) and the 'expected'
 estimator.  csi_oneBD (3 runs, Poisson background): the -hardcore counts
 fit (400 x 20 grid, F = 1024, bfloat16 A operator of 4096 x 8000) and the
 default mc fit (100 x 10 grid, F = 512).
@@ -118,11 +119,37 @@ Phases (any failure raises; the exit code is then non-zero):
      profiler that has run makes every later launch dearer for the host);
  18d. last: one short simultFit counts CLI run with -profile DIR in a
      subprocess; its Chrome trace exists and names the tof_hist kernel.
+Then the remaining forward models (before phase 11 too):
+ 19. the simple family: K3 against its plain version on one half-step's
+     samples of v2 (50 walkers x 200k, XS weights, 50 bins) and of v0 (25
+     x 200k, 25 bins), within 1e-6 of each row's total, the same on a
+     second call, rows shared by blocks; its device time beside its bound;
+     the log-probs of v0, v1, v2 and v2.5 card vs CPU on 8 walkers with
+     the same draws within 1e-5 relative, one K3 launch each; then
+     cli.simple_tof in process at the CLI's widths (v0 50 walkers, the
+     others 100, 200k draws, 20 steps): finite quantiles, the rate line,
+     K3 once per log-prob evaluation, K1, K2 and K4 never;
+ 20. the templates: K4 in depth tiles against its plain version at
+     (128, 200k), M = 100, Be = 150, 4 substeps, phase 4's criteria; its
+     device time, plain time, bound and issue floor; K2 with one segment
+     on the templates' (32, 4, 100, 150) lattices as phase 3 holds it;
+     the templates card vs CPU on the same energies of 4 rows within 1e-4
+     relative L1; generate_templates (K4 once, K2 once) timed three
+     times; cli.template_fit at 500 walkers x 200 steps with -doML:
+     finite medians, the ML fit no worse than its start, the CSV cache
+     read back equal to the templates the CLI made;
+ 21. the csi2016 PPC: PPCSampler.generate card vs CPU on 8 draws with the
+     same energies within 1e-4 relative L1, K4 and K2 once for the chunk;
+     K4 at a chunk's (500, 50k), M = 20, Be = 100, phase 4's criteria and
+     times; cli.ppc -model csi2016 at the CLI defaults (100 draws x 50k)
+     on a synthetic skew-normal chain: bands and SDEF card well formed, K4
+     and K2 once per chunk, K1 and K3 never; PPC draws/s cold and warm.
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
 """
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -137,11 +164,15 @@ import numpy as np
 import torch
 
 from mcmctoffitting_tpu_torch import sampler
+from mcmctoffitting_tpu_torch.cli import _driver as cli_driver
 from mcmctoffitting_tpu_torch.cli import csi_onebd as cli_onebd
 from mcmctoffitting_tpu_torch.cli import plot_chain as cli_plot_chain
 from mcmctoffitting_tpu_torch.cli import ppc as cli_ppc
+from mcmctoffitting_tpu_torch.cli import simple_tof as cli_simple
 from mcmctoffitting_tpu_torch.cli import simult_fit as cli_simult
-from mcmctoffitting_tpu_torch.models import onebd, simult
+from mcmctoffitting_tpu_torch.cli import template_fit as cli_template
+from mcmctoffitting_tpu_torch.models import (csi2016, onebd, simple, simult,
+                                             templates)
 from mcmctoffitting_tpu_torch.models import problem as problem_mod
 from mcmctoffitting_tpu_torch.models.forward import exact_rows_per_chunk
 from mcmctoffitting_tpu_torch.ops import cuda_build, cuda_hist, cuda_transport
@@ -1460,6 +1491,507 @@ def phase_profile():
     return len(kernels)
 
 
+# --- phases 19-21: the remaining forward models ---------------------------
+
+SIMPLE_CLI = {
+    # model: walkers at the CLI's widths
+    "v0": 50, "v1": 100, "v2": 100, "v2.5": 100,
+}
+SIMPLE_RUNS = tuple(f"simple_{m}" for m in SIMPLE_CLI)
+SIMPLE_STEPS = 20
+SIMPLE_SEED_W = 8                     # walkers of the card-vs-CPU check
+TEMPLATE_FIT = ["-nWalkers", "500", "-nBurnin", "200", "-doML"]
+CSI_PPC_DRAWS, CSI_PPC_N = 100, 50_000   # cli.ppc's defaults
+
+
+def simple_setup(model, n_draws, dev):
+    """(spec, standoff, problem, observed) as cli.simple_tof builds them
+    (the observed histogram of 10k samples at the truth)."""
+    spec, standoff, problem = cli_simple.build_problem(model, n_draws, dev)
+    truth = torch.as_tensor(
+        np.asarray(cli_simple.MODEL_CONFIGS[model]["truth"])[None],
+        dtype=torch.float32, device=dev)
+    tofs, _, _, _ = simple.sample_tof(torch.Generator().manual_seed(19),
+                                      truth, spec, standoff)
+    w = spec.window
+    observed, _ = np.histogram(tofs[0, :10_000].cpu().numpy(), w.n_bins,
+                               w.range)
+    return spec, standoff, problem, observed.astype(np.float32)
+
+
+def k3_row(dev, values, weights, n_bins, lo, hi, label):
+    """K3 against its plain version at one shape (within 1e-6 of each
+    row's total, the same bits on a second call), its device time beside
+    its bound and the plain version's time."""
+    kern = cuda_hist.weighted_histogram(values, lo, hi, n_bins, weights)
+    plain = cuda_hist.weighted_histogram_plain(values, lo, hi, n_bins,
+                                               weights)
+    err = (kern - plain).abs()
+    rel = (err / plain.sum(-1, keepdim=True).clamp_min(1e-30)).max().item()
+    again = cuda_hist.weighted_histogram(values, lo, hi, n_bins, weights)
+    require(rel <= 1e-6, f"{label}: K3 within 1e-6 of each row's total")
+    require(torch.equal(kern, again), f"{label}: K3 the same on every call")
+    blocks = ctypes.c_longlong()
+    cuda_build.check(cuda_build.load_library().lib
+                     .mcmctof_weighted_hist_blocks(
+                         values.shape[0], values.shape[1], n_bins, dev.index,
+                         ctypes.byref(blocks)), "weighted_hist grid")
+    require(blocks.value > values.shape[0],
+            f"{label}: rows shared by blocks (the float64 parts path)")
+
+    def call():
+        return cuda_hist.weighted_histogram(values, lo, hi, n_bins, weights)
+
+    in_range = ((values >= lo) & (values <= hi)).sum().item()
+    b_ms, b_by = bound(4 * (2 * values.numel() + values.shape[0] * n_bins),
+                       2 * values.numel() + 5 * in_range)
+    row = {"shape": tuple(values.shape), "bins": n_bins,
+           "max_abs_err": err.max().item(), "rel_err": rel,
+           "blocks": blocks.value, "ms": devtime.graph_ms(call),
+           "plain_ms": cuda_ms(lambda: cuda_hist.weighted_histogram_plain(
+               values, lo, hi, n_bins, weights), reps=10),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "enqueue_us": devtime.enqueue_us(call)}
+    log(f"{label}: K3 vs plain on {row['shape']}, {n_bins} bins, "
+        f"{blocks.value} blocks: max|diff| {row['max_abs_err']:g} ({rel:.2e} "
+        f"of the row total), the same on a second call; kernel "
+        f"{row['ms']:.5f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}), enqueue {row['enqueue_us']:.1f} us")
+    return row
+
+
+def phase_simple(dev, smi, tmp, rate, launches):
+    """Phase 19: the simple family.  K3 on one half-step's samples of v2
+    (50 walkers x 200k, XS weights, 50 bins) and of v0 (25 x 200k, 25
+    bins); the card against the CPU for v0-v2.5 on 8 walkers with the
+    same draws; then cli.simple_tof at the CLI's widths."""
+    out = {"k3": {}, "gpu_vs_cpu": {}, "cli": {}}
+    for model, half in (("v2", 50), ("v0", 25)):
+        spec, standoff, problem, _ = simple_setup(model, N_DRAWS, dev)
+        cfg = cli_simple.MODEL_CONFIGS[model]
+        thetas = (torch.as_tensor(cfg["truth"], dtype=torch.float32,
+                                  device=dev)
+                  * (1 + 0.01 * torch.randn(
+                      (half, len(cfg["truth"])),
+                      generator=torch.Generator(dev).manual_seed(2),
+                      device=dev)))
+        tofs, weights, _, _ = simple.sample_tof(
+            torch.Generator().manual_seed(3), thetas, spec, standoff)
+        weights = torch.ones_like(tofs) if weights is None else weights
+        w = spec.window
+        out["k3"][model] = k3_row(dev, tofs.contiguous(),
+                                  weights.contiguous(), w.n_bins, w.lo,
+                                  w.hi, f"phase 19a ({model}, {smi})")
+        del tofs, weights
+
+    for model in SIMPLE_CLI:
+        spec, standoff, card, observed = simple_setup(model, N_DRAWS, dev)
+        cpu = simple.SimpleProblem(spec, standoff, card.param_lo,
+                                   card.param_hi, device="cpu")
+        cfg = cli_simple.MODEL_CONFIGS[model]
+        thetas = torch.as_tensor(cfg["truth"], dtype=torch.float32) * (
+            1 + 0.01 * torch.randn((SIMPLE_SEED_W, len(cfg["truth"])),
+                                   generator=torch.Generator().manual_seed(4)))
+        u, z = simple.draw_simple(spec, SIMPLE_SEED_W,
+                                  torch.Generator().manual_seed(5), "cpu")
+        x = u * spec.geometry.cell_length
+        reset_counts()
+        got = card.log_prob_from_draws(
+            thetas.to(dev), x.to(dev), z.to(dev),
+            torch.as_tensor(observed, device=dev)).cpu()
+        torch.cuda.synchronize()
+        used = read_counts()
+        want = cpu.log_prob_from_draws(thetas, x, z,
+                                       torch.as_tensor(observed))
+        fin = torch.isfinite(want)
+        rel = ((got - want).abs() / want.abs()).where(fin, 0.0).max().item()
+        log(f"phase 19b ({model}): log-probs card vs CPU on "
+            f"{SIMPLE_SEED_W} walkers x {N_DRAWS} draws, the same draws: "
+            f"max rel {rel:.2e}; finite {int(fin.sum())} of "
+            f"{SIMPLE_SEED_W}; launches {used}")
+        require(torch.equal(fin, torch.isfinite(got)) and rel <= 1e-5,
+                f"phase 19b ({model}): card vs CPU within 1e-5 relative")
+        require(used["weighted_hist"] == 1 and used["tof_hist"] ==
+                used["poisson"] == used["transport_moments"] == 0,
+                f"phase 19b ({model}): one K3 launch per evaluation")
+        out["gpu_vs_cpu"][model] = rel
+        del card, cpu, x, z
+
+    for model, n_walkers in SIMPLE_CLI.items():
+        where = tmp / f"simple_{model}"
+        where.mkdir()
+        label = f"phase 19c (simple_tof {model})"
+        evals = [0]
+        log_prob = simple.SimpleProblem.log_prob
+
+        def counted(self, *args, **kwargs):
+            evals[0] += 1
+            return log_prob(self, *args, **kwargs)
+
+        simple.SimpleProblem.log_prob = counted
+        try:
+            res, text, _, used = run_cli(
+                cli_simple, ["--model", model, "--nWalkers", str(n_walkers),
+                             "--nSteps", str(SIMPLE_STEPS), "--nDraws",
+                             str(N_DRAWS)], where, label)
+        finally:
+            simple.SimpleProblem.log_prob = log_prob
+        evals = evals[0]
+        n_dim = cli_simple.MODEL_CONFIGS[model]["n_dim"]
+        require(all(np.isfinite(v).all() for v in res["quantiles"].values())
+                and len(res["quantiles"]) == n_dim,
+                f"{label}: finite quantiles")
+        rate_lines = [json.loads(line) for line in text.splitlines()
+                      if line.startswith('{"walker_steps_per_sec"')]
+        require(len(rate_lines) == 1 and rate_lines[0][
+            "walker_steps_per_sec"] == res["walker_steps_per_sec"],
+            f"{label}: the CLI printed its walker-steps/s")
+        require(evals >= 1 + 2 * SIMPLE_STEPS
+                and used["weighted_hist"] == evals
+                and used["poisson"] == used["tof_hist"]
+                == used["transport_moments"] == used["K2-bwd"] == 0,
+                f"{label}: K3 once per log-prob evaluation, K1, K2, K4 "
+                f"never ({used}, {evals} evaluations)")
+        rate[f"cli_simple_{model}"] = res["walker_steps_per_sec"]
+        launches[f"cli_simple_{model}"] = dict(
+            used, log_prob_evaluations=evals)
+        out["cli"][model] = {
+            "walkers": n_walkers, "steps": SIMPLE_STEPS,
+            "walker_steps_per_s": res["walker_steps_per_sec"],
+            "acceptance": res["acceptance"],
+            "initial_nonfinite": res["initial_nonfinite"],
+            "log_prob_evaluations": evals}
+        log(f"{label} ({smi}): {n_walkers} walkers x {SIMPLE_STEPS} steps x "
+            f"{N_DRAWS} draws: {res['walker_steps_per_sec']:.1f} "
+            f"walker-steps/s (the CLI's own line, its initial evaluation "
+            f"included); acceptance {res['acceptance']:.3f}; initial "
+            f"log-probs non-finite {res['initial_nonfinite']} of "
+            f"{n_walkers}; {evals} evaluations")
+    return out
+
+
+def k4_check_tiled(e0, rk4, bins, label):
+    """The depth-tiled K4 against its plain version on (R, N) initial
+    energies, phase 4's criteria: bins equal on >= 99.99% of (sample,
+    depth) pairs, moments within 1e-5 of each row's total, per channel
+    against the float64 sums.  The plain energies go 8 rows at a time."""
+    kern, e_kern = cuda_transport.transport_moments(e0, rk4, bins,
+                                                    energies_out=True)
+    n = e0.shape[1]
+    equal, bits, counts_equal, ratio, rel, max_err = 0, 0, True, 0.0, 0.0, 0.0
+    for start in range(0, e0.shape[0], 8):
+        rows = slice(start, start + 8)
+        e_plain = stopping.rk4_transport(rk4, e0[rows])
+        equal += (in_range_bins(e_kern[rows], bins)
+                  == in_range_bins(e_plain, bins)).sum().item()
+        bits += (e_kern[rows] == e_plain).sum().item()
+        plain = cuda_transport.energy_moments(
+            lambda e: e[:, None], e_plain.reshape(-1, n), 1,
+            bins).reshape(kern[rows].shape)
+        err = (kern[rows] - plain).abs()
+        total = plain[:, :, 0].sum(dim=(-2, -1))[:, None, None, None]
+        rel = max(rel, (err / total.clamp_min(1.0)).max().item())
+        max_err = max(max_err, err.max().item())
+        del e_plain, plain
+        for r in range(start, min(start + 8, e0.shape[0]), 2):
+            c_eq, ratio_r = cuda_transport.moment_check(
+                kern[r:r + 2], e_kern[r:r + 2], bins)
+            counts_equal, ratio = counts_equal and c_eq, max(ratio, ratio_r)
+    share, bit_share = equal / e_kern.numel(), bits / e_kern.numel()
+    in_range = (kern[:, :, 0].sum().item())
+    del e_kern
+    tile = cuda_transport.tile_spans(len(rk4.h), bins.n_bins)
+    log(f"{label}: K4 (depth tiles of {tile}) vs plain on "
+        f"{tuple(e0.shape)}, M = {len(rk4.h)}, Be = {bins.n_bins}, "
+        f"{rk4.n_substeps} substeps: bins equal on "
+        f"{share:.6f} of (sample, depth) pairs, energies bitwise equal on "
+        f"{bit_share:.6f}; moments max|diff| {max_err:g} ({rel:.2e} of the "
+        f"row total); counts equal {counts_equal}, d-channels at "
+        f"{ratio:.3f} of their tolerance")
+    require(share >= 0.9999, f"{label}: K4 bins equal on >= 99.99% of pairs")
+    require(rel <= 1e-5, f"{label}: K4 moments within 1e-5 of the row total")
+    require(counts_equal, f"{label}: K4 count channel exact")
+    require(ratio <= 1.0, f"{label}: K4 d-channels within their steps")
+    # a second call: the count channel the same bits (integers, exact in
+    # float32); the d-channels may differ in the last bit, where three or
+    # more blocks' flushes meet in a cell (float atomics, in no fixed order)
+    again = cuda_transport.transport_moments(e0, rk4, bins)
+    total = kern[:, :, 0].sum(dim=(-2, -1))[:, None, None, None]
+    drift = ((again - kern).abs() / total.clamp_min(1.0)).max().item()
+    log(f"{label}: a second call: counts equal "
+        f"{torch.equal(again[:, :, 0], kern[:, :, 0])}, every channel "
+        f"equal {torch.equal(again, kern)}, max|diff| {drift:.2e} of the row "
+        f"total")
+    require(torch.equal(again[:, :, 0], kern[:, :, 0]) and drift <= 1e-6,
+            f"{label}: K4 counts the same on a second call, moments within "
+            f"1e-6 of the row total")
+    return max_err, in_range
+
+
+def k4_bound(e0, rk4, bins, in_range_pairs):
+    """K4's roofline bound and issue floor (phase 6's operation counts)."""
+    pairs = e0.numel() * len(rk4.h)
+    k4_ops = 2 * pairs + 14 * in_range_pairs
+    b_ms, b_by = bound(4 * (e0.numel() + e0.shape[0] * len(rk4.h) * 4
+                            * bins.n_bins),
+                       44 * rk4.n_substeps * pairs + k4_ops)
+    instr = ((4 * (5 + LOGF_INSTR + DIV_INSTR) + 16) * rk4.n_substeps * pairs
+             + k4_ops)
+    return b_ms, b_by, 1e3 * instr / INSTR_RATE
+
+
+def phase_templates(dev, smi, tmp, rate, launches):
+    """Phase 20: the depth-tiled K4 at the templates' (128, 200k), M = 100,
+    Be = 150; generate_templates card vs CPU and its launches; K2 at the
+    templates' lattice; cli.template_fit at 500 walkers x 200 steps with
+    -doML."""
+    spec = templates.default_spec(N_DRAWS)
+    fwd = templates.template_forward(spec, device=dev)
+    e0, e_lo = templates.draw_template_energies(
+        spec, torch.Generator().manual_seed(20), 4, dev)
+    rows = e0.reshape(-1, N_DRAWS).contiguous()           # (128, N)
+    k4_err, in_range = k4_check_tiled(rows, fwd.rk4, fwd.moment_bins,
+                                      "phase 20a")
+
+    def k4_call():
+        return cuda_transport.transport_moments(rows, fwd.rk4,
+                                                fwd.moment_bins)
+
+    b_ms, b_by, floor_ms = k4_bound(rows, fwd.rk4, fwd.moment_bins, in_range)
+    k4 = {"shape": tuple(rows.shape), "depths": len(fwd.rk4.h),
+          "bins": fwd.moment_bins.n_bins, "substeps": fwd.rk4.n_substeps,
+          "tile_spans": cuda_transport.tile_spans(len(fwd.rk4.h),
+                                                  fwd.moment_bins.n_bins),
+          "max_abs_err": k4_err,
+          "ms": devtime.queued_ms(k4_call, launches=3),
+          "plain_ms": cuda_ms(lambda: cuda_transport.transport_moments_plain(
+              rows, fwd.rk4, fwd.moment_bins), reps=1, warmup=0),
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+          "issue_floor_ms": floor_ms}
+    log(f"phase 20a ({smi}): K4 {k4['shape']} M = 100, Be = 150: kernel "
+        f"{k4['ms']:.4f} ms, plain {k4['plain_ms']:.1f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), instruction-issue floor {floor_ms:.4f} ms")
+
+    # K2 with one segment on the templates' (32, 4, 100, 150) lattices
+    grids = fwd.energy_weight_grid(e0)
+    base, draws = fwd.lattice(grids, e_lo[:, None].expand(e0.shape[:2]))
+    base, draws = base.contiguous(), draws.contiguous()
+    k2_err = phase_tof(dev, base, draws, fwd, label="phase 20b")
+
+    def k2_call():
+        return tof_hist_segments(base, draws, fwd.zt, fwd.zw, fwd.win)
+
+    k2_in = k2_in_window(base, fwd.zt, fwd.win)
+    b2_ms, b2_by = bound(4 * (2 * base.numel() + 2 * fwd.zt.numel()
+                              + base.shape[0] * base.shape[1]
+                              * fwd.win.n_pad),
+                         4 * base.numel() + 5 * k2_in)
+    k2 = {"shape": tuple(base.shape), "segments": 1, "max_abs_err": k2_err,
+          "ms": devtime.graph_ms(k2_call),
+          "plain_ms": cuda_ms(lambda: tof_hist_segments_plain(
+              base, draws, fwd.zt, fwd.zw, fwd.win)),
+          "bound_ms": b2_ms, "bound_by": b2_by, "library_ms": None}
+    log(f"phase 20b ({smi}): K2 {k2['shape']}, K = 1: kernel "
+        f"{k2['ms']:.5f} ms, plain {k2['plain_ms']:.4f} ms, bound "
+        f"{b2_ms:.5f} ms ({b2_by})")
+    del grids, base, draws
+
+    # the whole generation on the card against the CPU, one slice x 4 runs
+    got = templates.templates_from_energies(fwd, e0[:1], e_lo[:1]).cpu()
+    cpu_fwd = templates.template_forward(spec, device="cpu")
+    want = templates.templates_from_energies(cpu_fwd, e0[:1].cpu(),
+                                             e_lo[:1].cpu())
+    rel = ((got - want).abs().sum(-1) / want.abs().sum(-1)).max().item()
+    log(f"phase 20c: templates card vs CPU on 4 rows x {N_DRAWS} uniform "
+        f"energies: max rel L1 {rel:.2e}")
+    require(bool(torch.isfinite(got).all()) and rel <= 1e-4,
+            "phase 20c: templates card vs CPU within 1e-4 relative L1")
+    del cpu_fwd, rows, e0
+    torch.cuda.empty_cache()
+    times = []
+    for _ in range(3):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        made = templates.generate_templates(
+            torch.Generator().manual_seed(21), spec, device=dev)
+        times.append(time.perf_counter() - t0)
+        used = read_counts()
+        require(used["transport_moments"] == 1 and used["tof_hist"] == 1
+                and used["poisson"] == used["weighted_hist"] == 0,
+                f"phase 20c: K4 once and K2 once for the 128 templates "
+                f"({used})")
+    require(all(np.isfinite(t).all() for t in made),
+            "phase 20c: finite templates")
+    log(f"phase 20c ({smi}): generate_templates (4 runs x 32 slices x "
+        f"{N_DRAWS}) in {times[0]:.4f} s (first call), then "
+        f"{times[1]:.4f}, {times[2]:.4f} s; launches {used}")
+
+    where = tmp / "template_fit"
+    where.mkdir()
+    label = "phase 20d (template_fit)"
+    res, text, _, used = run_cli(cli_template, TEMPLATE_FIT, where, label)
+    require(used["transport_moments"] == 1 and used["tof_hist"] == 1
+            and used["poisson"] == used["weighted_hist"] == 0,
+            f"{label}: K4 and K2 once, for the templates ({used})")
+    require(np.isfinite(res["scales_median"]).all()
+            and np.isfinite(res["coeffs_median"]).all(),
+            f"{label}: finite medians")
+    ml = res["ml"]
+    require(ml["nll"] <= ml["nll_start"] + 1e-6 * abs(ml["nll_start"]),
+            f"{label}: the ML fit no worse than its start")
+    written = templates.load_templates_csv(str(where / "templates.csv"), 4)
+    require(all(np.array_equal(a.astype(np.float32), b)
+                for a, b in zip(written, res["templates"])),
+            f"{label}: the CSV cache reads back equal to the templates")
+    rate_lines = [json.loads(line) for line in text.splitlines()
+                  if line.startswith('{"walker_steps_per_sec"')]
+    require(len(rate_lines) == 1, f"{label}: the CLI printed its rate")
+    rate["cli_template_fit"] = res["walker_steps_per_sec"]
+    launches["cli_template_fit"] = used
+    log(f"{label} ({smi}): 500 walkers x 200 steps: "
+        f"{res['walker_steps_per_sec']:.1f} walker-steps/s (the CLI's own "
+        f"line); templates generated in {res['generate_s']:.3f} s; SLSQP "
+        f"nll {ml['nll']:.6g} from {ml['nll_start']:.6g} at the start "
+        f"(success {ml['success']}), scales {np.round(ml['x'][:3], 4)} "
+        f"(synthesis 1.1, 0.6, 1.5); posterior median scales "
+        f"{np.round(res['scales_median'], 4)}")
+    return {"k4": k4, "k2": k2, "gpu_vs_cpu_rel_l1": rel,
+            "generate_s": times, "template_fit": {
+                "walker_steps_per_s": res["walker_steps_per_sec"],
+                "generate_s": res["generate_s"],
+                "ml_scales": ml["x"][:3].tolist(), "ml_nll": ml["nll"],
+                "ml_nll_start": ml["nll_start"]}}
+
+
+def skewnorm_chain(path):
+    """A synthetic 4-parameter skew-normal (ppcTools-era) chain, emcee
+    text, 60 steps x 16 walkers around (900 keV, 0.05, 1, 1e4)."""
+    rng = np.random.default_rng(21)
+    center = np.array([900.0, 0.05, 1.0, 1e4])
+    scales = np.array([10.0, 0.005, 0.2, 500.0])
+    chain = center + scales * rng.standard_normal((60, 16, 4))
+    chain_io.append_chain_text(str(path), chain,
+                               -500.0 + rng.standard_normal((60, 16)))
+
+
+def phase_csi2016(dev, smi, tmp, rate, launches):
+    """Phase 21: the csi2016 PPC.  PPCSampler.generate card vs CPU on 8
+    draws with the same energies; then cli.ppc -model csi2016 at the CLI
+    defaults on a synthetic skew-normal chain."""
+    card = csi2016.Csi2016Problem(csi2016.default_spec(CSI_PPC_N), device=dev)
+    cpu = csi2016.Csi2016Problem(csi2016.default_spec(CSI_PPC_N),
+                                 device="cpu")
+    thetas = np.array([900.0, 0.05, 1.0, 1e4], np.float32) * (
+        1 + 0.01 * np.random.default_rng(22).standard_normal(
+            (PPC_CORE_DRAWS, 4)).astype(np.float32))
+    t = torch.as_tensor(thetas, device=dev)
+    gen = torch.Generator().manual_seed(23)
+    e_runs = card.forward.sample_beam_energies(t, gen)
+    e_grid = card.forward.sample_beam_energies(t, gen, n_runs=1)
+    # K4's input at the PPC's shape: a chunk of the CLI's 100 draws x (4
+    # runs + 1 weight grid) rows of 50k energies (one tile: M = 20, Be =
+    # 100)
+    t100 = t[torch.arange(CSI_PPC_DRAWS, device=dev) % PPC_CORE_DRAWS]
+    rows = card.forward.sample_beam_energies(t100, gen, n_runs=5).reshape(
+        -1, CSI_PPC_N).contiguous()
+    reset_counts()
+    got = ppc_with_energies(card, thetas, e_runs, e_grid, 3)
+    torch.cuda.synchronize()
+    used = read_counts()
+    want = ppc_with_energies(cpu, thetas, e_runs.cpu(), e_grid.cpu(), 3)
+
+    def rel_l1(a, b):
+        a, b = a.reshape(PPC_CORE_DRAWS, -1), b.reshape(PPC_CORE_DRAWS, -1)
+        return float((np.abs(a - b).sum(-1) / np.abs(b).sum(-1)).max())
+
+    rel = max(rel_l1(g, w) for g, w in zip(got.tof_spectra,
+                                           want.tof_spectra))
+    rel_grid = rel_l1(got.neutron_spectra, want.neutron_spectra)
+    log(f"phase 21a: csi2016 PPC card vs CPU on {PPC_CORE_DRAWS} draws x 4 "
+        f"runs x {CSI_PPC_N} energies: spectra max rel L1 {rel:.2e}, "
+        f"weight grids {rel_grid:.2e}; launches {used}")
+    require(rel <= 1e-4 and rel_grid <= 1e-4,
+            "phase 21a: csi2016 PPC card vs CPU within 1e-4 rel L1")
+    require(used["transport_moments"] == 1 and used["tof_hist"] == 1
+            and used["poisson"] == used["weighted_hist"] == 0,
+            "phase 21a: K4 and K2 once per chunk, K1 and K3 never")
+    fwd = card.forward
+    k4_err, in_range = k4_check_tiled(rows, fwd.rk4, fwd.moment_bins,
+                                      "phase 21a")
+
+    def k4_call():
+        return cuda_transport.transport_moments(rows, fwd.rk4,
+                                                fwd.moment_bins)
+
+    b_ms, b_by, floor_ms = k4_bound(rows, fwd.rk4, fwd.moment_bins, in_range)
+    k4 = {"shape": tuple(rows.shape), "depths": len(fwd.rk4.h),
+          "bins": fwd.moment_bins.n_bins, "substeps": fwd.rk4.n_substeps,
+          "tile_spans": cuda_transport.tile_spans(len(fwd.rk4.h),
+                                                  fwd.moment_bins.n_bins),
+          "max_abs_err": k4_err,
+          "ms": devtime.queued_ms(k4_call, launches=10),
+          "plain_ms": cuda_ms(lambda: cuda_transport.transport_moments_plain(
+              rows, fwd.rk4, fwd.moment_bins), reps=2, warmup=1),
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+          "issue_floor_ms": floor_ms}
+    log(f"phase 21a ({smi}): K4 {k4['shape']} M = 20, Be = 100: kernel "
+        f"{k4['ms']:.4f} ms, plain {k4['plain_ms']:.1f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), instruction-issue floor {floor_ms:.4f} ms")
+    del card, cpu, e_runs, e_grid, rows
+
+    chain_path = tmp / "old_campaign.dat"
+    skewnorm_chain(chain_path)
+    where = tmp / "ppc_csi2016"
+    where.mkdir()
+    label = "phase 21b (ppc csi2016)"
+    argv = ["-chainFilename", str(chain_path), "-model", "csi2016",
+            "-nChainEntries", str(CSI_PPC_DRAWS), "-nSamplesFromTOF",
+            str(CSI_PPC_N)]
+    res, text, _, used = run_cli(cli_ppc, argv, where, label)
+    spec = csi2016.default_spec(CSI_PPC_N)
+    windows = csi2016.Csi2016Problem(spec, device="cpu").windows
+    for run, win in enumerate(windows):
+        bands = np.loadtxt(where / f"ppc_run{run}_bands.txt")
+        require(bands.shape == (3, win.n_bins) and np.isfinite(bands).all()
+                and np.all(bands[0] <= bands[1])
+                and np.all(bands[1] <= bands[2]),
+                f"{label}: run {run} bands (3, {win.n_bins}), finite, "
+                f"ordered")
+    n_en = len(spec.en_centers())
+    si, sp = (where / "ppc_sdef.txt").read_text().splitlines()
+    require(si.startswith("si100 a") and len(si.split()) == 2 + n_en
+            and sp.startswith("sp100") and len(sp.split()) == 1 + n_en,
+            f"{label}: SDEF card with one si and sp entry per energy")
+    chunks = -(-CSI_PPC_DRAWS // PPC_CHUNK)
+    require(used["transport_moments"] == chunks and used["tof_hist"] == chunks
+            and used["poisson"] == used["weighted_hist"] == 0,
+            f"{label}: K4 and K2 once per chunk, K1 and K3 never ({used})")
+    chain, probs, *_ = chain_io.read_chain_text(str(chain_path))
+    sampler = ppc_mod.PPCSampler(
+        csi2016.Csi2016Problem(spec, device=dev), chain, probs)
+    warm = []
+    for _ in range(PPC_WARM_REPEATS):
+        t0 = time.perf_counter()
+        sampler.generate(torch.Generator().manual_seed(0), CSI_PPC_DRAWS)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    warm_s = float(np.median(warm))
+    rate["ppc_csi2016_draws_per_s"] = CSI_PPC_DRAWS / res["generate_s"]
+    rate["ppc_csi2016_warm_draws_per_s"] = CSI_PPC_DRAWS / warm_s
+    launches["cli_ppc_csi2016"] = dict(used, chunks=chunks)
+    log(f"{label} ({smi}): {CSI_PPC_DRAWS} posterior draws x 4 runs x "
+        f"{CSI_PPC_N} in {res['generate_s']:.4f} s (the CLI's one cold "
+        f"call) -> {CSI_PPC_DRAWS / res['generate_s']:.1f} PPC draws/s; "
+        f"{PPC_WARM_REPEATS} warm calls: median {warm_s:.4f} s -> "
+        f"{CSI_PPC_DRAWS / warm_s:.1f} PPC draws/s (range "
+        f"{CSI_PPC_DRAWS / max(warm):.1f}-{CSI_PPC_DRAWS / min(warm):.1f})")
+    return {"gpu_vs_cpu": {"spectra_rel_l1": rel, "grids_rel_l1": rel_grid},
+            "generate_s": res["generate_s"], "warm_generate_s": warm,
+            "k4": k4}
+
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False "
@@ -1749,6 +2281,16 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grad_") as tmp:
         phase_gradient_cli(smi, Path(tmp), rate, launches)
 
+    # phases 19-21: the simple family, the templates, the csi2016 PPC
+    # (before phase 11 too)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_models_") as tmp:
+        torch.cuda.empty_cache()
+        simple_out = phase_simple(dev, smi, Path(tmp), rate, launches)
+        torch.cuda.empty_cache()
+        templates_out = phase_templates(dev, smi, Path(tmp), rate, launches)
+        torch.cuda.empty_cache()
+        csi_out = phase_csi2016(dev, smi, Path(tmp), rate, launches)
+
     # phase 11: the second cross-check of phase 6's device times, the kernel
     # durations torch.profiler reports for eager calls.  It comes last: once
     # the profiler has run in a process, every later launch costs the host
@@ -1787,6 +2329,13 @@ def main():
         "transport_moments": ("transport_moments.cu", "pallas_forward.py:54",
                               "mc_taylor"),
     }
+    extra_shapes = {
+        "weighted_hist": {"at_simple_shapes": simple_out["k3"]},
+        "tof_hist": {"at_templates_shape": templates_out["k2"]},
+        "transport_moments": {
+            "at_templates_shape": templates_out["k4"],
+            "at_csi2016_ppc_shape": csi_out["k4"]},
+    }
     kernels = []
     for name, (src, tpu, path) in meta.items():
         k_ms, p_ms, l_ms = times[name]
@@ -1810,7 +2359,11 @@ def main():
             # launches during each command-line run of phases 13, 17, 18
             "launches_cli": {run: launches[f"cli_{run}"][name]
                              for run in (*CLI_RUNS, *GRAD_RUNS,
-                                         *PPC_RUNS)}})
+                                         *PPC_RUNS, *SIMPLE_RUNS,
+                                         "template_fit", "ppc_csi2016")},
+            # the remaining forward models (phases 19-21): each kernel at
+            # its shapes there, with its own error, times and bound
+            **extra_shapes.get(name, {})})
     # K2's backward: its time, bound and error at simultFit's lattice, the
     # oneBD hardcore lattice beside it; its launches on this slice's main
     # path, the gradient samplers' CLI runs
@@ -1840,7 +2393,14 @@ def main():
                       "onebd_a_build_seconds": at_onebd["a_build_seconds"],
                       "ppc": {"gpu_vs_cpu": ppc_core, "cli": ppc_cli,
                               "profile_tof_hist_kernel_events":
-                              profile_kernels}}))
+                              profile_kernels},
+                      "simple": {"gpu_vs_cpu_rel": simple_out["gpu_vs_cpu"],
+                                 "cli": simple_out["cli"]},
+                      "templates": {
+                          k: v for k, v in templates_out.items()
+                          if k not in ("k4", "k2")},
+                      "csi2016_ppc": {k: v for k, v in csi_out.items()
+                                      if k != "k4"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 """Console-script entry points (pyproject ``[project.scripts]``:
 ``mcmctof-torch-simult-fit``, ``mcmctof-torch-csi-onebd``,
-``mcmctof-torch-ppc``, ``mcmctof-torch-plot-chain``).
+``mcmctof-torch-ppc``, ``mcmctof-torch-plot-chain``,
+``mcmctof-torch-simple-tof``, ``mcmctof-torch-template-fit``).
 
 Each CLI's ``main()`` returns its result dict so tests and library
 callers can assert on it; a console script ``sys.exit()``s the return
@@ -26,4 +27,14 @@ def ppc() -> None:
 
 def plot_chain() -> None:
     from . import plot_chain as m
+    m.main()
+
+
+def simple_tof() -> None:
+    from . import simple_tof as m
+    m.main()
+
+
+def template_fit() -> None:
+    from . import template_fit as m
     m.main()

@@ -28,8 +28,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-model", choices=["simult", "onebd", "csi2016"],
                    default="simult",
                    help="csi2016 = ppcTools-era skewnorm-parameterized "
-                        "chains (theta = e0, sigma0, skew0, scaleFactor); "
-                        "a later slice of the port")
+                        "chains (theta = e0, sigma0, skew0, scaleFactor)")
     p.add_argument("-nRuns", default=4, type=int)
     p.add_argument("-nSamplesFromTOF", default=50_000, type=int,
                    help="MC draws per PPC forward eval")
@@ -55,15 +54,13 @@ def main(argv=None) -> dict:
 
     import torch
 
-    from ..models import onebd, simult
-    from ..models.forward import not_ported, resolve_device
+    from ..models import csi2016, onebd, simult
+    from ..models.forward import resolve_device
     from ..utils import chain_io, data_io, plotting
     from ..utils.ppc import (PPCSampler, collapse_neutron_spectrum,
                              make_sdef_sia_cumulative, percentile_bands)
     from ._driver import draw_figure
 
-    if args.model == "csi2016":
-        raise not_ported("-model csi2016 (models/csi2016.py)", "slice 5")
     device = resolve_device(args.device)
     if not os.path.exists(args.chainFilename):
         sys.exit(f"error: chain file not found: {args.chainFilename}")
@@ -79,6 +76,10 @@ def main(argv=None) -> dict:
         spec = simult.default_spec(n_samples=args.nSamplesFromTOF)
         problem = simult.SimultFitProblem(spec, n_runs=args.nRuns,
                                           device=device)
+    elif args.model == "csi2016":
+        spec = csi2016.default_spec(n_samples=args.nSamplesFromTOF)
+        problem = csi2016.Csi2016Problem(spec, n_runs=args.nRuns,
+                                         device=device)
     else:
         spec = onebd.default_spec(n_samples=args.nSamplesFromTOF)
         problem = onebd.OneBDProblem(spec, n_runs=3, device=device)

@@ -313,4 +313,5 @@ class PTSampler:
 
     def __init__(self, *args, **kwargs):
         raise not_ported("compat/emcee.py::PTSampler (sampler/pt.py)",
-                         "slice 5")
+                         "the parallel-tempering slice: sampler/pt.py and "
+                         "shifting_gaussian")

@@ -1,13 +1,15 @@
 """The batched TOF forward model: the mc, counts and expected estimators.
 
 Port of ``mcmctoffitting_tpu/models/forward.py``: ``grid_and_mean`` for
-the three ``sampling`` modes, ``energy_weight_grid`` for every pair of
-``transport`` ('rk4', 'table') and ``xs_mode`` ('e0grid', 'taylor',
-'exact') the JAX package runs, the cell attenuation, ``cell_tof_lattice``,
-both zero-degree stages ('segments', 'expo'), the per-run background and
-``tof_spectra_multi``.  The JAX package evaluates one walker under
-``vmap``; here every stage takes the whole batch, walkers then runs,
-``(W, R, ...)``.  The grid stage, by estimator:
+the three ``sampling`` modes, the three beam sources of the mc estimator
+('lognorm', 'skewnorm', 'gaussian'), ``energy_weight_grid`` for every
+pair of ``transport`` ('rk4', 'table') and ``xs_mode`` ('e0grid',
+'taylor', 'exact') the JAX package runs, the cell attenuation,
+``cell_tof_lattice`` (with or without the detector's half-length), the
+three zero-degree stages ('segments', 'expo', 'none'), the per-run
+background and ``tof_spectra_multi``.  The JAX package evaluates one
+walker under ``vmap``; here every stage takes the whole batch, walkers
+then runs, ``(W, R, ...)``.  The grid stage, by estimator:
 
   counts: closed-form Poisson rates of the F fine e0 cells
     (``ops/e0grid``); one Poisson launch for all (W, R, F+2) rates
@@ -16,7 +18,8 @@ both zero-degree stages ('segments', 'expo'), the per-run background and
   expected: the closed-form fine-cell moments themselves, contracted with
     A: no draw, one grid and one e0 mean shared by every run.
   mc: N initial energies per (walker, run), drawn on the device
-    (``ops/pdfs``); then by ``xs_mode``: 'e0grid', the per-sample
+    (``ops/pdfs``; beamE - lognorm, a skew normal or a normal, by
+    ``beam_source``); then by ``xs_mode``: 'e0grid', the per-sample
     fine-cell moments (``ops/e0grid.fine_cell_moments``) contracted with
     A; 'taylor', the moment histograms of the transported energies
     (kernel K4 on 'rk4', fused with the transport; the table lookup and
@@ -28,9 +31,9 @@ both zero-degree stages ('segments', 'expo'), the per-run background and
 Then, for all: the cell attenuation (oneBD), normalise, scale to
 ``n_samples`` draws, ``rint``; the TOF lattice of every (x, eD) cell,
 histogrammed into each run's window (kernel K2: spread over the ten
-zero-degree segments, or as it is, one segment, for 'expo'); density
-normalisation, for 'expo' the causal exponential kernel and the padding
-bins re-zeroed, the beam-timing convolution, run scale, and the
+zero-degree segments, or as it is, one segment, for 'expo' and 'none');
+density normalisation, for 'expo' the causal exponential kernel and the
+padding bins re-zeroed, the beam-timing convolution, run scale, and the
 background (its expectation or one Poisson draw per bin, kernel K1) on
 the real bins.
 
@@ -57,7 +60,9 @@ from ..ops.e0grid import (CountsRates, E0Grid, E0GridTable, contract,
 from ..ops.histogram import WindowConstants, window_constants
 from ..ops.interp import UniformCubicSpline1D, eval_uniform_spline
 from ..ops.kinematics import dd_neutron_energy_np, tof, tof_np
-from ..ops.pdfs import beam_energies_from_uniforms, draw_beam_uniforms
+from ..ops.pdfs import (beam_energies_from_uniforms, beam_energies_redrawn,
+                        device_normals, draw_beam_uniforms,
+                        skewnorm_from_normals)
 from ..ops.poisson import seed_words
 from ..ops.stopping import (BetheStopping, StoppingTable,
                             bethe_closed_form_constants, eval_stopped,
@@ -68,16 +73,14 @@ from ..ops.timing import (ExGaussianTiming, GaussianTiming,
                           zero_degree_expo_kernel)
 from ..ops.xs import ddn_xs_uniform
 
-# where each value the port does not run yet arrives (ROADMAP.md Queue 1)
-_NOT_YET = {
-    ("zero_degree", "none"): "slice 5",
-}
 _SUPPORTED = {
     "sampling": ("counts", "mc", "expected"),
     "xs_mode": ("e0grid", "taylor", "exact"),
     "transport": ("table", "rk4"),
     "a_dtype": ("float32", "bfloat16"), "cell_attenuation": (False, True),
-    "zero_degree": ("segments", "expo"), "bg_mode": ("poisson", "expected"),
+    "zero_degree": ("segments", "expo", "none"),
+    "bg_mode": ("poisson", "expected"),
+    "beam_source": ("lognorm", "skewnorm", "gaussian"),
     "moment_closure": ("exact", "cell"),
     "e0_mean_mode": ("sample", "expected"),
 }
@@ -117,9 +120,8 @@ class ForwardSpec:
     package's ``ForwardSpec`` that change the result.  Fields that only
     chose a TPU/XLA schedule (``moment_radix``, ``tof_hist_radix``,
     ``run_axis``, ``histogram_chunk``, ``moment_dtype``, ``use_pallas``)
-    have no counterpart; values the port does not run yet raise
-    ``NotImplementedError`` naming the ROADMAP slice that adds them, and
-    combinations the JAX package rejects raise ``ValueError`` as it does.
+    have no counterpart; an unknown value, and a combination the JAX
+    package rejects, raise ``ValueError`` as it does.
     """
 
     geometry: CellGeometry
@@ -137,10 +139,17 @@ class ForwardSpec:
     rk4_substeps: int = 4
     beam_timing: Union[ExGaussianTiming, GaussianTiming] = ExGaussianTiming()
     # zero-degree detector transit: 'segments' (10-segment spread,
-    # simultFit) or 'expo' (7-tap exponential kernel, oneBD)
+    # simultFit), 'expo' (7-tap exponential kernel, oneBD) or 'none'
     zero_degree: str = "segments"
     # multiply the grid's x slices by the exp(-x / 20 cm) beam attenuation
     cell_attenuation: bool = False
+    # add the detector's half-length to the neutron flight path (the
+    # v1-era models and the templates; simultFit dropped it)
+    add_half_zero_deg: bool = False
+    # the initial-energy law of mc (TofForward.sample_beam_energies):
+    # 'lognorm' (beamE - lognorm, simultFit / oneBD), 'skewnorm' (the
+    # ppcTools-era chains) or 'gaussian' (v2.5)
+    beam_source: str = "lognorm"
     # per-run background: 'poisson' draws fresh counts per evaluation (the
     # reference), 'expected' adds the level itself
     bg_mode: str = "poisson"
@@ -148,7 +157,8 @@ class ForwardSpec:
     # round the normalised (x, eD) grid to integer draw counts
     rint_draws: bool = True
     # -1: draws conditioned on e0 > 0 (the reference's redraw loop);
-    # 0: no conditioning (one untruncated draw)
+    # 0: no conditioning (one untruncated draw); k > 0: k redraw rounds of
+    # the draws that are still <= 0 (lognorm)
     n_redraw_rounds: int = -1
     # mc: 'e0grid' (fine-cell moments x the A operator; transport='table'),
     # 'taylor' (moments x Taylor coefficients) or 'exact' (per-sample cross
@@ -174,9 +184,6 @@ class ForwardSpec:
             value = getattr(self, field)
             if value in allowed:
                 continue
-            if (field, value) in _NOT_YET:
-                raise not_ported(f"ForwardSpec.{field}={value!r}",
-                                 _NOT_YET[(field, value)])
             raise ValueError(f"unknown ForwardSpec.{field}={value!r} "
                              f"(expected one of {allowed})")
         if self.sampling != "mc" and self.xs_mode != "e0grid":
@@ -187,13 +194,15 @@ class ForwardSpec:
                              "(the preimages invert the stopping table)")
         if self.transport == "table" and self.stopping_table is None:
             raise ValueError("transport='table' requires stopping_table")
+        if self.beam_source != "lognorm" and (
+                self.sampling != "mc" or self.e0_mean_mode == "expected"):
+            raise ValueError(
+                f"sampling={self.sampling!r} with e0_mean_mode="
+                f"{self.e0_mean_mode!r} requires the lognorm beam source")
         if self.sampling != "mc":
             return
         if self.transport == "rk4" and self.stopping is None:
             raise ValueError("transport='rk4' requires stopping")
-        if self.n_redraw_rounds > 0:
-            raise not_ported(f"n_redraw_rounds={self.n_redraw_rounds} with "
-                             "sampling='mc'", "slice 5")
 
     @property
     def truncated(self) -> bool:
@@ -201,6 +210,52 @@ class ForwardSpec:
 
     def en_centers(self) -> np.ndarray:
         return dd_neutron_energy_np(self.ed_binning.centers)
+
+
+def draw_beam(spec: ForwardSpec, shape, generator: torch.Generator,
+              device) -> torch.Tensor:
+    """The random input of :func:`beam_energies_from_draws` for initial
+    energies of ``shape`` (W, R, N), float32 on ``device`` (seeded from the
+    host ``generator``): 'lognorm' with ``n_redraw_rounds`` -1 or 0, the
+    uniforms or normals of ``ops.pdfs.draw_beam_uniforms`` (``shape``);
+    with k > 0 rounds, (1 + k, *shape) normals; 'skewnorm', (3, *shape)
+    normals (the two of the skew normal, and the fallback's); 'gaussian',
+    (1, *shape) normals."""
+    if spec.beam_source == "lognorm" and spec.n_redraw_rounds <= 0:
+        return draw_beam_uniforms(shape, spec.truncated, generator, device)
+    sets = {"lognorm": 1 + spec.n_redraw_rounds, "skewnorm": 3,
+            "gaussian": 1}[spec.beam_source]
+    return device_normals((sets,) + tuple(shape), generator, device)
+
+
+def beam_energies_from_draws(spec: ForwardSpec, u: torch.Tensor,
+                             params: torch.Tensor) -> torch.Tensor:
+    """Deterministic core of the beam draw: the draws of :func:`draw_beam`
+    and params (W, 4) -> initial energies (W, ...).
+
+    * 'lognorm': params (beamE, eLoss, scale, s); e0 = beamE - lognorm(s,
+      loc=eLoss, scale), truncated, drawn once, or redrawn
+      ``n_redraw_rounds`` times (``ops/pdfs``).
+    * 'skewnorm': params (e0, sigma0, skew0, ...); a skew normal with
+      a = skew0, loc = e0, scale = e0 sigma0 (the Azzalini construction
+      of ``ops.pdfs.skewnorm_from_normals`` on the first two sets), and
+      where e0 sigma0 <= 0 the reference's fallback, a normal of scale 1
+      around e0 on the third (``utilities/ppcTools.py:213-217``).
+    * 'gaussian': params (e0, sigma0, ...); e0 + e0 sigma0 z.
+    """
+    p = [params[:, k] for k in range(4)]
+    if spec.beam_source == "lognorm":
+        if spec.n_redraw_rounds > 0:
+            return beam_energies_redrawn(u, *p)
+        return beam_energies_from_uniforms(u, *p, spec.truncated)
+    lead = (slice(None),) + (None,) * (u.dim() - 2)
+    e0, sigma0 = p[0][lead], p[1][lead]
+    if spec.beam_source == "gaussian":
+        return e0 + e0 * sigma0 * u[0]
+    scale = e0 * sigma0
+    safe = torch.where(scale > 0, scale, 1.0)
+    sn = skewnorm_from_normals(u[0], u[1], p[2][lead], e0, safe)
+    return torch.where(scale > 0, sn, e0 + safe * u[2])
 
 
 def taylor_coeffs(spec: ForwardSpec) -> np.ndarray:
@@ -221,8 +276,9 @@ class ForwardTables:
     (:func:`forward_tables_from_numpy`).  ``xs_mode='e0grid'`` reads
     ``e0_grid``; the other two ``taylor`` and ``xs_coeffs``, and on
     ``transport='rk4'`` ``bethe``; ``zero_degree='expo'`` reads
-    ``expo_kernel`` and a single segment (``zt`` zeros, ``zw`` ones).  The
-    stopping table's spline is read from ``spec.stopping_table``.
+    ``expo_kernel`` and, as 'none' does, a single segment (``zt`` zeros,
+    ``zw`` ones).  The stopping table's spline is read from
+    ``spec.stopping_table``.
     """
 
     timing_kernel: np.ndarray     # (T,) beam-timing taps
@@ -237,15 +293,17 @@ class ForwardTables:
 
 def forward_tables(spec: ForwardSpec) -> ForwardTables:
     """Tables of ``spec``, built by the port in numpy."""
+    expo = None
     if spec.zero_degree == "segments":
         zd = ZeroDegreeTimingSpread(length=spec.geometry.zero_deg_length)
         zt, zw = zd.times_and_weights(spec.en_centers())
-        expo = None
     else:
-        # 'expo' has no segments: the lattice is histogrammed as it is
+        # 'expo' and 'none' have no segments: the lattice is histogrammed
+        # as it is
         zt = np.zeros((spec.ed_binning.n, 1), np.float32)
         zw = np.ones((spec.ed_binning.n, 1), np.float32)
-        expo = zero_degree_expo_kernel()
+        if spec.zero_degree == "expo":
+            expo = zero_degree_expo_kernel()
     if spec.xs_mode == "e0grid" and spec.e0_grid_table is None:
         raise ValueError("xs_mode='e0grid' requires e0_grid_table "
                          "(ops.e0grid.build_e0_grid_table)")
@@ -364,6 +422,8 @@ class TofForward(torch.nn.Module):
         en = spec.en_centers().astype(np.float32)
         n_dist = (np.float32(spec.geometry.cell_length) - x[None, :, None]
                   + np.asarray(standoffs, np.float32)[:, None, None])
+        if spec.add_half_zero_deg:
+            n_dist = n_dist + np.float32(spec.geometry.zero_deg_length / 2.0)
         self.register_buffer("tof_n", _f32(
             tof_np(masses.neutron, en[None, None, :], n_dist), device))
         self.register_buffer("zt", _f32(tables.zt, device))           # (Be, K)
@@ -438,13 +498,11 @@ class TofForward(torch.nn.Module):
         params' device (seeded from the host ``generator``):
         (W, 4) -> (W, R, N).  ``n_runs`` and ``n`` override the forward's
         run count and ``spec.n_samples``."""
-        spec = self.spec
-        u = draw_beam_uniforms((params.shape[0], n_runs or self.n_runs,
-                                n or spec.n_samples), spec.truncated,
-                               generator, params.device)
-        return beam_energies_from_uniforms(u, params[:, 0], params[:, 1],
-                                           params[:, 2], params[:, 3],
-                                           spec.truncated)
+        shape = (params.shape[0], n_runs or self.n_runs,
+                 n or self.spec.n_samples)
+        return beam_energies_from_draws(
+            self.spec, draw_beam(self.spec, shape, generator, params.device),
+            params)
 
     def transport(self, e0: torch.Tensor) -> torch.Tensor:
         """Energies at the M depths, (..., N) -> (..., M, N): the RK4
@@ -498,6 +556,17 @@ class TofForward(torch.nn.Module):
         e0 = self.sample_beam_energies(params, generator)    # (W, R, N)
         return self.energy_weight_grid(e0), torch.mean(e0, dim=-1)
 
+    def lattice_e0_means(self, params: torch.Tensor,
+                         sample_means: torch.Tensor) -> torch.Tensor:
+        """The e0 means that feed the lattice, (W, R): the draws' sample
+        means, or with ``e0_mean_mode='expected'`` the closed-form mean of
+        each walker's law."""
+        if self.spec.e0_mean_mode == "expected":
+            return expected_e0_mean(
+                params[:, 0], params[:, 1], params[:, 2], params[:, 3],
+                self.spec.truncated)[:, None].expand_as(sample_means)
+        return sample_means
+
     # --- shared stages --------------------------------------------------
 
     def grid_and_mean(self, params: torch.Tensor,
@@ -514,11 +583,7 @@ class TofForward(torch.nn.Module):
             grids, e0_means = self._counts_grid_and_mean(params, generator)
         else:
             grids, e0_means = self._mc_grid_and_mean(params, generator)
-        if self.spec.e0_mean_mode == "expected":
-            e0_means = expected_e0_mean(
-                params[:, 0], params[:, 1], params[:, 2], params[:, 3],
-                self.spec.truncated)[:, None].expand_as(e0_means)
-        return grids, e0_means
+        return grids, self.lattice_e0_means(params, e0_means)
 
     def pdf_grid(self, grids: torch.Tensor) -> torch.Tensor:
         """Grids (..., M, Be) normalised to a density over the (x, eD)

@@ -42,8 +42,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes (each returns an int: a cudaError_t,
-# the bin cap of mcmctof_weighted_hist_max_bins, or the byte count of
-# mcmctof_tof_hist_plan)
+# the bin cap of mcmctof_weighted_hist_max_bins, the byte count of
+# mcmctof_tof_hist_plan, or the spans of mcmctof_transport_moments_tile)
 _SIGNATURES = {
     # lam, out, n, row_len, n_rep, seed words (device, or null), seed0,
     # seed1, device, stream
@@ -69,10 +69,12 @@ _SIGNATURES = {
     # n_rows, n_valid, n_bins, device, blocks (out)
     "mcmctof_weighted_hist_blocks": [_I, _L, _I, _I,
                                      ctypes.POINTER(ctypes.c_longlong)],
-    # e0, steps, out, e_out, n_rows, n, n_x, n_sub, n_bins, a, p, q,
-    # floor, lo, hi, inv_width, device, stream
-    "mcmctof_transport_moments": [_P] * 4 + [_I, _L, _I, _I, _I]
+    # e0, steps, out, e_out, carry, n_rows, n, n_x, n_sub, n_bins, a, p,
+    # q, floor, lo, hi, inv_width, device, stream
+    "mcmctof_transport_moments": [_P] * 5 + [_I, _L, _I, _I, _I]
     + [_F] * 7 + [_I, _P],
+    # n_x, n_bins -> spans per tile (n_x: one tile; 0: refused)
+    "mcmctof_transport_moments_tile": [_I, _I],
     # device, stream: an empty kernel (the launch floor of utils/devtime.py)
     "mcmctof_empty_kernel": [_I, _P],
 }

@@ -117,6 +117,14 @@ def transport_moments_plain(e0: torch.Tensor, c: RK4Constants,
     return energy_moments(lambda e: rk4_transport(c, e), e0, len(c.h), bins)
 
 
+def tile_spans(n_x: int, n_bins: int) -> int:
+    """Depths per tile of the CUDA kernel at (n_x, n_bins), as its C
+    library decides: n_x where one launch holds every depth's histogram,
+    fewer where the depths go in tiles, 0 where it cannot take the shape
+    (one depth's 4 x n_bins int32 histogram above 200 KiB)."""
+    return load_library().lib.mcmctof_transport_moments_tile(n_x, n_bins)
+
+
 @functools.lru_cache(maxsize=16)
 def _steps_tensor(c: RK4Constants, device: torch.device) -> torch.Tensor:
     """(3, M) float32 (h, h/2, h/6) on the device, copied there once
@@ -130,7 +138,11 @@ def transport_moments(e0: torch.Tensor, c: RK4Constants, bins: MomentBins,
     """Per-row moment histograms, (R, N) float32 -> (R, M, 4, n_bins).
 
     ``energies_out`` (CUDA only) also returns the kernel's transported
-    energies (R, M, N), for checks against the plain version.
+    energies (R, M, N), for checks against the plain version.  Where one
+    block's shared memory cannot hold every depth's histogram (the
+    templates' M = 100 x Be = 150), the kernel takes the depths in tiles
+    (:func:`tile_spans`) and carries the energies between them in an
+    (R, N) float32 buffer allocated here; a shape it cannot take raises.
     """
     if e0.dtype != torch.float32 or e0.dim() != 2:
         raise TypeError("transport_moments: expects (R, N) float32 energies")
@@ -150,13 +162,19 @@ def transport_moments(e0: torch.Tensor, c: RK4Constants, bins: MomentBins,
                       device=e0.device)
     e_out = (torch.empty((n_rows, n_x, n), dtype=torch.float32,
                          device=e0.device) if energies_out else None)
+    tile = tile_spans(n_x, bins.n_bins)
+    if tile < 1:
+        raise ValueError(f"transport_moments: the CUDA kernel cannot take "
+                         f"{n_x} depths x {bins.n_bins} bins")
     if n_rows and n:
         lib = load_library().lib
         stream = torch.cuda.current_stream(e0.device).cuda_stream
         steps = _steps_tensor(c, e0.device)
+        carry = torch.empty_like(e0) if tile < n_x else None
         check(lib.mcmctof_transport_moments(
             e0.data_ptr(), steps.data_ptr(), out.data_ptr(),
-            e_out.data_ptr() if e_out is not None else None, n_rows, n,
+            e_out.data_ptr() if e_out is not None else None,
+            None if carry is None else carry.data_ptr(), n_rows, n,
             n_x, c.n_substeps, bins.n_bins, c.a, c.p, c.q, c.energy_floor,
             float(np.float32(bins.lo)), float(np.float32(bins.hi)),
             bins.inv_width, e0.device.index, stream),

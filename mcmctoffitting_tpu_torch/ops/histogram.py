@@ -1,7 +1,8 @@
 """Fixed-range weighted histograms.
 
 Port of ``weighted_histogram``, ``weighted_histogram_multi_window`` and
-``histogram_density`` of ``mcmctoffitting_tpu/ops/histogram.py``.
+``histogram_density`` and ``delta_moment_histogram`` of
+``mcmctoffitting_tpu/ops/histogram.py``.
 ``weighted_histogram`` (one range over the trailing axis) dispatches by
 device to kernel K3 and lives with it in ``ops/cuda_hist.py``.  The JAX package builds its
 histograms as one-hot matmuls for the TPU's matrix unit; here they are a
@@ -77,3 +78,38 @@ def histogram_density(hist: torch.Tensor, lo: float, hi: float):
     """A count/weight histogram in np.histogram(density=True) form."""
     width = (hi - lo) / hist.shape[-1]
     return hist / (torch.sum(hist, dim=-1, keepdim=True) * width)
+
+
+def delta_moment_histogram(values: torch.Tensor, lo: float, hi: float,
+                           n_bins: int, n_moments: int = 4, *,
+                           extra_weight=None) -> torch.Tensor:
+    """Within-bin offset moment histograms: for each bin j, M_p[j] = sum
+    over its samples of w_s delta_s^p, p = 0 .. n_moments - 1, with delta_s
+    = (v_s - lo) n_bins / (hi - lo) - j - 0.5 in [-0.5, 0.5) and w_s the
+    optional ``extra_weight`` (else 1).  np.histogram's rules: values
+    outside [lo, hi] add nothing, v == hi lands in the last bin.
+    (..., N) -> (..., n_moments, n_bins) float32.
+
+    The JAX package builds it as a one-hot matmul (an XLA op, no Pallas
+    kernel, and no caller outside its tests); here one ``scatter_add_``
+    over (channel, bin) indices, summed in float32."""
+    v = values.to(torch.float32)
+    u = (v - lo) * (n_bins / (hi - lo))
+    idx = torch.clamp(torch.floor(u), 0, n_bins - 1)
+    in_range = (v >= lo) & (v <= hi)
+    delta = u - idx - 0.5
+    base = in_range.to(torch.float32)
+    if extra_weight is not None:
+        base = base * extra_weight.to(torch.float32)
+    chans = [base]
+    for _ in range(n_moments - 1):
+        chans.append(chans[-1] * delta)
+    chans = torch.stack(chans, dim=-2)                  # (..., C, N)
+    cells = (torch.arange(n_moments, device=v.device)[:, None] * n_bins
+             + torch.where(in_range, idx, 0.0).long()[..., None, :])
+    out = torch.zeros(v.shape[:-1] + (n_moments * n_bins,),
+                      dtype=torch.float32, device=v.device)
+    out.scatter_add_(-1, cells.reshape(v.shape[:-1] + (-1,)),
+                     torch.where(in_range[..., None, :], chans, 0.0)
+                     .reshape(v.shape[:-1] + (-1,)))
+    return out.reshape(v.shape[:-1] + (n_moments, n_bins))

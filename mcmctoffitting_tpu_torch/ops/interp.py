@@ -3,9 +3,9 @@
 Port of ``mcmctoffitting_tpu/ops/interp.py``: the not-a-knot coefficient
 solve and the f64 ``eval_np`` of both spline classes (with the uniform
 spline's derivatives), with the same arithmetic so the tables they feed
-are bitwise equal to the JAX package's, and the uniform spline's
+are bitwise equal to the JAX package's, the uniform spline's
 per-sample ``__call__`` on tensors (the cross-section weights of
-``xs_mode='exact'``).
+``xs_mode='exact'``), and ``linear_interp`` (``jnp.interp``'s rules).
 """
 from __future__ import annotations
 
@@ -178,3 +178,20 @@ def eval_uniform_spline(spline: UniformCubicSpline1D, t: torch.Tensor,
     dt = t - (spline.lo + spline.step * idx.to(t.dtype))
     c3, c2, c1, c0 = (coeffs[k][idx] for k in range(4))
     return ((c3 * dt + c2) * dt + c1) * dt + c0
+
+
+def linear_interp(xq: torch.Tensor, xp: torch.Tensor,
+                  fp: torch.Tensor) -> torch.Tensor:
+    """Piecewise-linear interpolation of (xp, fp) at ``xq`` with
+    ``np.interp``'s rules (the JAX package's ``linear_interp``, a
+    ``jnp.interp`` wrapper): ``xp`` increasing; queries below xp[0] or
+    above xp[-1] take fp[0] or fp[-1]."""
+    xq = torch.as_tensor(xq)
+    xp = torch.as_tensor(xp, dtype=xq.dtype, device=xq.device)
+    fp = torch.as_tensor(fp, dtype=xq.dtype, device=xq.device)
+    i = torch.clamp(torch.searchsorted(xp, xq, right=True) - 1, 0,
+                    xp.shape[0] - 2)
+    x0, x1, f0, f1 = xp[i], xp[i + 1], fp[i], fp[i + 1]
+    out = f0 + (xq - x0) * (f1 - f0) / (x1 - x0)
+    out = torch.where(xq <= xp[0], fp[0], out)
+    return torch.where(xq >= xp[-1], fp[-1], out)

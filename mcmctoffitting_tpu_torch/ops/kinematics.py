@@ -1,8 +1,9 @@
 """Two-body reaction kinematics and time of flight.
 
-Port of ``mcmctoffitting_tpu/ops/kinematics.py``: ``tof`` and
-``dd_neutron_energy`` on torch tensors (any shape, any device), and the f64
-numpy twins used to build the host-side tables.
+Port of ``mcmctoffitting_tpu/ops/kinematics.py``: ``tof``,
+``velocity_from_energy`` and ``dd_neutron_energy`` on torch tensors (any
+shape, any device), and the f64 numpy twins used to build the host-side
+tables.
 """
 from __future__ import annotations
 
@@ -47,6 +48,11 @@ def tof(mass: float, energy: torch.Tensor, distance) -> torch.Tensor:
     distance cm): v = c sqrt(2E/m), t = d/v."""
     velocity = physics.speed_of_light * torch.sqrt(2.0 * energy / mass)
     return distance / velocity
+
+
+def velocity_from_energy(mass: float, energy: torch.Tensor) -> torch.Tensor:
+    """Non-relativistic speed in cm/ns (mass keV/c^2, energy keV)."""
+    return physics.speed_of_light * torch.sqrt(2.0 * energy / mass)
 
 
 def tof_np(mass: float, energy, distance) -> np.ndarray:

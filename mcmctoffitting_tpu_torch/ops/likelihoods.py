@@ -1,7 +1,8 @@
-"""Binned Poisson likelihoods and the box prior, batched.
+"""Binned likelihoods and the box prior, batched.
 
-Port of ``mcmctoffitting_tpu/ops/likelihoods.py`` (``poisson_binned_loglike``,
-``poisson_logpmf_loglike``, ``box_lnprior``), reducing over the last axis:
+Port of ``mcmctoffitting_tpu/ops/likelihoods.py`` (``multinomial_loglike``,
+``poisson_binned_loglike``, ``poisson_logpmf_loglike``,
+``template_gaussian_loglike``, ``box_lnprior``), reducing over the last axis:
 model (..., n_bins) against observed (n_bins,) or (..., n_bins) -> (...).
 An optional boolean ``mask`` (broadcast like the model) drops bins, for
 per-run spectra padded to a common width.  The numerical semantics are the
@@ -10,7 +11,19 @@ a NaN total maps to -inf.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def multinomial_loglike(model_pdf, observed):
+    """sum_i obs_i log(pdf_i) over the last axis, with the reference's
+    guards (``utilities/utilities.py:113-124``): a bin with no observed
+    count adds 0 whatever the pdf, a bin with data where the pdf is 0
+    gives -inf, and a NaN total is -inf."""
+    contrib = torch.where(observed > 0, observed * torch.log(model_pdf), 0.0)
+    total = torch.sum(contrib, dim=-1)
+    return torch.where(torch.isnan(total), -torch.inf, total)
 
 
 def poisson_binned_terms(model_counts, observed_counts):
@@ -55,6 +68,26 @@ def poisson_logpmf_terms(model_counts, observed_counts):
 def poisson_logpmf_loglike(model_counts, observed_counts, *, mask=None):
     """The corrected Poisson(obs | rate=model) binned log-likelihood."""
     return _total(poisson_logpmf_terms(model_counts, observed_counts), mask)
+
+
+def template_gaussian_loglike(model_tof, observed):
+    """The wide-Gaussian template likelihood
+    (``tests/devShapeTemplates.py:272-294``) over the last axis: after
+    clamping observed zeros to 1 and model bins below one count to 1 (the
+    JAX package's ``model < 1`` clamp, copied as it is),
+    logN(model | obs, 0.07 obs) + logN(obs | model, 0.15 model) summed.
+    A non-finite model spectrum, or a NaN total, gives -inf."""
+    obs_c = torch.where(observed == 0, 1.0, observed)
+    model_c = torch.where(model_tof < 1.0, 1.0, model_tof)
+
+    def norm_logpdf(x, mu, sigma):
+        return (-0.5 * torch.log(2.0 * math.pi * sigma ** 2)
+                - (x - mu) ** 2 / (2.0 * sigma ** 2))
+
+    ll = torch.sum(norm_logpdf(model_c, obs_c, obs_c * 0.07)
+                   + norm_logpdf(obs_c, model_c, model_c * 0.15), dim=-1)
+    finite = torch.isfinite(torch.sum(model_tof, dim=-1))
+    return torch.where(finite & ~torch.isnan(ll), ll, -torch.inf)
 
 
 def box_lnprior(theta, lo, hi, *, inclusive: bool = False):

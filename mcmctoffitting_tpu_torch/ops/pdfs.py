@@ -1,10 +1,15 @@
-"""Initial deuteron energies of the mc estimator.
+"""Random variates and pdfs of the forward models, and the initial
+deuteron energies of the mc estimator.
 
-Port of ``mcmctoffitting_tpu/ops/pdfs.py::beam_energy_rvs``: e0 = beamE -
-lognorm(s, loc=eLoss, scale), either truncated to e0 > 0 by inverse CDF
-(``n_redraw_rounds = -1``, statistically identical to the reference's
-redraw-until-positive loop) or drawn once untruncated
-(``n_redraw_rounds = 0``).  Other redraw budgets are not ported.
+Port of ``mcmctoffitting_tpu/ops/pdfs.py``: ``lognorm_rvs``,
+``lognorm_pdf``, ``skewnorm_pdf`` and ``skewnorm_rvs`` (the reference's
+Azzalini construction, ``utilities/pdfs.py:8-28``), and
+``beam_energy_rvs``: e0 = beamE - lognorm(s, loc=eLoss, scale), either
+truncated to e0 > 0 by inverse CDF (``n_redraw_rounds = -1``,
+statistically identical to the reference's redraw-until-positive loop),
+drawn once untruncated (``n_redraw_rounds = 0``) or redrawn a fixed
+number of rounds (``n_redraw_rounds > 0``: each round replaces the draws
+that are still <= 0 with fresh ones; stragglers keep their last draw).
 
 The draw is split in two:
 
@@ -14,7 +19,14 @@ The draw is split in two:
   floats per half-step, which must not cross from the host.
 * :func:`beam_energies_from_uniforms`, the deterministic core, maps them
   to energies with the (W,) parameters, exactly as the JAX package maps
-  its own uniforms (or normals).
+  its own uniforms (or normals); :func:`beam_energies_redrawn` maps one
+  set of normals per redraw round.
+
+Every other draw is split the same way: a draw of standard normals on the
+device (:func:`device_normals`) and a deterministic core
+(:func:`lognorm_from_normals`, :func:`skewnorm_from_normals`), which the
+tests hold exactly against the JAX package's arithmetic on the same
+normals.
 
 Seeding: ``log_prob`` receives a host ``torch.Generator`` (the sampler's
 eval generator).  Each forward draws two 32-bit words from it
@@ -24,6 +36,8 @@ then needs no transfer and no synchronisation, and a fixed host seed
 reproduces the whole chain.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -82,3 +96,82 @@ def beam_energies_from_uniforms(u: torch.Tensor, beam_e: torch.Tensor,
     else:
         z = u
     return beam_e - (e_loss + scale * torch.exp(s * z))
+
+
+def beam_energies_redrawn(z: torch.Tensor, beam_e: torch.Tensor,
+                          e_loss: torch.Tensor, scale: torch.Tensor,
+                          s: torch.Tensor) -> torch.Tensor:
+    """Deterministic core of the fixed-budget redraw
+    (``n_redraw_rounds > 0``): standard normals z (1 + rounds, W, ..., N)
+    -> energies (W, ..., N).  The first set is the draw; round k replaces
+    every energy still <= 0 by the k-th fresh draw (the JAX package's
+    ``fori_loop``).  Degenerate parameters keep their last draw."""
+    e = beam_energies_from_uniforms(z[0], beam_e, e_loss, scale, s, False)
+    for fresh_z in z[1:]:
+        fresh = beam_energies_from_uniforms(fresh_z, beam_e, e_loss, scale,
+                                            s, False)
+        e = torch.where(e <= 0.0, fresh, e)
+    return e
+
+
+def device_normals(shape, generator: torch.Generator,
+                   device) -> torch.Tensor:
+    """Standard normals, float32 on ``device``, from a generator there
+    seeded by two words of the host ``generator``."""
+    gen = device_generator(generator, torch.device(device))
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def lognorm_from_normals(z: torch.Tensor, s, loc=0.0,
+                         scale=1.0) -> torch.Tensor:
+    """Deterministic core of :func:`lognorm_rvs`: loc + scale exp(s z)."""
+    return loc + scale * torch.exp(s * z)
+
+
+def lognorm_rvs(generator: torch.Generator, s, loc=0.0, scale=1.0,
+                shape=(), device="cuda") -> torch.Tensor:
+    """scipy.stats.lognorm.rvs(s, loc, scale) on ``device``."""
+    return lognorm_from_normals(device_normals(shape, generator, device), s,
+                                loc, scale)
+
+
+def lognorm_pdf(x: torch.Tensor, s, loc=0.0, scale=1.0) -> torch.Tensor:
+    """scipy.stats.lognorm.pdf(x, s, loc, scale); 0 where x <= loc."""
+    y = (x - loc) / scale
+    y_safe = torch.where(y > 0, y, 1.0)
+    pdf = (torch.exp(-torch.log(y_safe) ** 2 / (2.0 * s ** 2))
+           / (y_safe * s * math.sqrt(2.0 * math.pi) * scale))
+    return torch.where(y > 0, pdf, 0.0)
+
+
+def skewnorm_pdf(x: torch.Tensor, a=0.0, loc=0.0,
+                 scale=1.0) -> torch.Tensor:
+    """The reference's skew-normal pdf (``utilities/pdfs.py:12-14``):
+    2 phi((x - loc)/scale) Phi(a (x - loc)/scale) / scale."""
+    t = (x - loc) / scale
+    phi = torch.exp(-t * t / 2.0) / math.sqrt(2.0 * math.pi)
+    cdf = 0.5 * (1.0 + torch.special.erf(a * t / math.sqrt(2.0)))
+    return 2.0 * phi * cdf / scale
+
+
+def skewnorm_from_normals(u0: torch.Tensor, v: torch.Tensor, a=0.0,
+                          loc=0.0, scale=1.0) -> torch.Tensor:
+    """Deterministic core of :func:`skewnorm_rvs` on two sets of standard
+    normals: the Azzalini construction with, as in the reference, BOTH
+    normals scaled by ``scale``: u0' = scale u0, v' = scale v,
+    d = a / sqrt(1 + a^2), u1 = d u0' + v' sqrt(1 - d^2), then u1 where
+    u0' >= 0, else -u1, plus ``loc``."""
+    u0 = scale * u0
+    v = scale * v
+    a = torch.as_tensor(a, dtype=u0.dtype, device=u0.device)
+    d = a / torch.sqrt(1.0 + a * a)
+    u1 = d * u0 + v * torch.sqrt(1.0 - d * d)
+    return torch.where(u0 >= 0, u1, -u1) + loc
+
+
+def skewnorm_rvs(generator: torch.Generator, shape=(), a=0.0, loc=0.0,
+                 scale=1.0, device="cuda") -> torch.Tensor:
+    """Skew-normal draws on ``device`` (:func:`skewnorm_from_normals` of
+    two sets of normals drawn there)."""
+    z = device_normals((2,) + tuple(shape), generator, device)
+    return skewnorm_from_normals(z[0], z[1], a, loc, scale)

@@ -2,7 +2,8 @@
 E(E0, x) transport table.
 
 Port of ``mcmctoffitting_tpu/ops/stopping.py``: the material constants,
-``BetheStopping.dedx``, ``rk4_transport``, the f64 RK4 used to build the
+``BetheStopping.dedx`` and ``with_material``, the Havar foil
+(``havar_stopping``), ``rk4_transport``, the f64 RK4 used to build the
 table and the table's spline coefficients (host arithmetic equal to the
 JAX package's, so the tables are bitwise equal), plus the closed form
 dE/dx = -(A/E)(P + Q ln E) of ``ops/pallas_forward.py``.
@@ -43,6 +44,12 @@ class BetheStopping:
     materials: tuple[tuple[float, float, float, float], ...]
     ion_charge: float = 1.0
     ion_mass: float = masses.deuteron
+
+    def with_material(self, Z, A, rho, excitation_keV) -> "BetheStopping":
+        """A copy with one more material (the reference's ``addMaterial``,
+        ``utilities/ionStopping.py:71-76``)."""
+        return dataclasses.replace(
+            self, materials=self.materials + ((Z, A, rho, excitation_keV),))
 
     def _electron_densities(self) -> np.ndarray:
         return np.array([
@@ -158,6 +165,27 @@ def rk4_transport(c: RK4Constants, e0: torch.Tensor) -> torch.Tensor:
 def d2_gas_stopping(rho: float = 8.565e-5) -> BetheStopping:
     """Deuterium gas cell medium (rho g/cm^3, mean excitation 19.2 eV)."""
     return BetheStopping(materials=((1.0, 2.0, rho, 19.2e-3),))
+
+
+# Havar alloy: (Z, atomic mass, SRIM atomic fraction, excitation keV)
+# (the reference's ``utilities/ionStopping.py:140-176``), bulk density 8.3
+# g/cm^3
+_HAVAR_COMPONENTS = (
+    (27.0, 58.933195, 0.417829, 0.2970),
+    (24.0, 51.9961, 0.222858, 0.2570),
+    (28.0, 58.6934, 0.128336, 0.3110),
+    (74.0, 183.84, 0.008824, 0.7270),
+    (42.0, 95.94, 0.014494, 0.4240),
+    (25.0, 54.938045, 0.016874, 0.2720),
+    (26.0, 55.845, 0.181139, 0.2860),
+    (6.0, 12.011, 0.009648, 0.078),
+)
+
+
+def havar_stopping() -> BetheStopping:
+    """Havar foil stopping model (``utilities/ionStopping.py:138-184``)."""
+    return BetheStopping(materials=tuple(
+        (Z, A, 8.3 * frac, exc) for (Z, A, frac, exc) in _HAVAR_COMPONENTS))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -105,16 +105,34 @@ class PPCSampler:
         oneBD its own background draw) and the neutron-yield weight grid
         (a beam draw of its own).
 
-        Each chunk of draws is one batched forward of all runs and one
-        weight-grid stage."""
+        Each chunk of draws is one batched forward of all runs.  With the
+        mc estimator the grid stage takes the runs' initial energies and
+        the weight grids' (drawn apart, in the order the forward and the
+        weight grids draw them) in one call, so that its kernel (K4 on the
+        ODE path) launches once per chunk."""
         thetas = self.draw_thetas(generator, n_draws, lnprob_cut)
         forward = self.problem.forward
 
         def spectra_and_grids(chunk):
             params, scales, bg_levels = self.problem.split_theta(chunk)
-            spectra = forward(params, scales, generator, bg_levels,
-                              get_pdf=True)
-            return spectra, self._weight_grids(generator, chunk)
+            if forward.spec.sampling != "mc":
+                spectra = forward(params, scales, generator, bg_levels,
+                                  get_pdf=True)
+                return spectra, self._weight_grids(generator, chunk)
+            e_runs = forward.sample_beam_energies(params, generator)
+            background = (None if bg_levels is None
+                          else forward.background(bg_levels, generator))
+            e_grid = forward.sample_beam_energies(
+                self.problem.shared_params(chunk), generator, n_runs=1)
+            n_runs = e_runs.shape[1]
+            grids = forward.energy_weight_grid(
+                torch.cat([e_runs, e_grid], dim=1))
+            base_tof, draws = forward.lattice(
+                grids[:, :n_runs],
+                forward.lattice_e0_means(params, e_runs.mean(dim=-1)))
+            spectra = forward.spectra(base_tof, draws, scales, background,
+                                      get_pdf=True)
+            return spectra, grids[:, n_runs]
 
         parts = _in_chunks(spectra_and_grids, self._thetas_tensor(thetas))
         spectra = torch.cat([s for s, _ in parts]).cpu().numpy()

@@ -10,16 +10,20 @@ F = 128, 2 runs for simultFit).
   likelihood), within 1e-4 relative.
 * A checkpoint written by the JAX CLI resumes in the port's CLI, its
   log-probs kept.
+* The simple family and the template unfolding: ``cli.simple_tof
+  --debug`` for each model and ``cli.template_fit --debug -doML`` (pinned
+  to the synthesis truth) on the CPU at reduced sizes.
 * The parser surface: every flag of the JAX parsers parses, the features
   of later slices raise ``not_ported``, the TPU-schedule flags print a
   note, ``-quitEarly`` stops after set-up, ``-shiftTOF`` shifts as the
   JAX CLI does, ``-chunkWalkers`` with 'expected' equals the unchunked
   fit, and the default device is the GPU.
 * Post-processing: ``-profile DIR`` writes a trace on both fit CLIs;
-  ``cli.ppc`` writes the JAX CLI's file set from one chain (and refuses
-  ``-model csi2016`` until its slice); ``cli.plot_chain`` prints the JAX
-  CLI's lines; the figures of the fit CLIs are drawn, or without
-  matplotlib one line says so, and any other plotting error fails.
+  ``cli.ppc`` writes the JAX CLI's file set from one chain (and, for
+  ``-model csi2016``, from a skew-normal chain); ``cli.plot_chain``
+  prints the JAX CLI's lines; the figures of the fit CLIs are drawn, or
+  without matplotlib one line says so, and any other plotting error
+  fails.
 """
 import dataclasses
 import os
@@ -513,15 +517,14 @@ def test_ppc_cli_writes_the_jax_file_set(tmp_path, monkeypatch, capsys):
 
 
 def test_ppc_cli_refusals(tmp_path, monkeypatch):
-    """-model csi2016 waits for models/csi2016.py (slice 5); a missing
-    chain file is the JAX CLI's one-line error; the default device is the
-    GPU."""
+    """A missing chain file is the JAX CLI's one-line error, for every
+    model (-model csi2016 is ported and reaches the same check); the
+    default device is the GPU."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tcli_ppc.main(["-chainFilename", "x.dat", "-model", "csi2016",
-                       "-device", "cpu"])
-    with pytest.raises(SystemExit, match="chain file not found"):
-        tcli_ppc.main(["-chainFilename", "missing.dat", "-device", "cpu"])
+    for model in ("simult", "onebd", "csi2016"):
+        with pytest.raises(SystemExit, match="chain file not found"):
+            tcli_ppc.main(["-chainFilename", "missing.dat", "-model", model,
+                           "-device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         tcli_ppc.main(["-chainFilename", "missing.dat"])
@@ -595,3 +598,134 @@ def test_other_plotting_errors_fail_the_run(tmp_path, monkeypatch):
         tcli_simult.main(["-device", "cpu", "-debug", "1", "-nRuns", "1",
                           "-nDrawsPerEval", "2000", "-fineGrid", "64",
                           "-nBurninSteps", "2", "-nMainSteps", "2"])
+
+
+# --- the simple family and the template unfolding (their CLIs) -----------
+
+from mcmctoffitting_tpu.cli import simple_tof as jcli_simple  # noqa: E402
+from mcmctoffitting_tpu.cli import template_fit as jcli_template  # noqa: E402
+from mcmctoffitting_tpu_torch.cli import (  # noqa: E402
+    simple_tof as tcli_simple, template_fit as tcli_template)
+
+
+def test_simple_and_template_parsers_have_the_jax_flags():
+    """The flags of the JAX CLIs (their parsers are built inside main(), so
+    the flag names are listed here), and -device (cuda)."""
+    import inspect
+    for jcli, tcli in ((jcli_simple, tcli_simple),
+                       (jcli_template, tcli_template)):
+        tp = tcli.build_parser()
+        for flag in _flags(tp) - {"-h", "--help", "-device"}:
+            assert f'"{flag}"' in inspect.getsource(jcli.main), flag
+        assert vars(tp.parse_args([]))["device"] == "cuda"
+    assert tcli_simple.MODEL_CONFIGS == jcli_simple.MODEL_CONFIGS
+    assert set(vars(tcli_simple.build_parser().parse_args([]))) == {
+        "model", "datafile", "nDraws", "nWalkers", "nSteps", "seed",
+        "debug", "outputPrefix", "minimizeSeed", "device"}
+    assert set(vars(tcli_template.build_parser().parse_args([]))) == {
+        "filename", "templateFile", "nDraws", "nWalkers", "nBurnin", "seed",
+        "debug", "outputPrefix", "doML", "device"}
+
+
+@pytest.mark.parametrize("model", ["v0", "v1", "v2", "v2.5"])
+def test_simple_tof_debug_on_the_cpu(model, tmp_path, monkeypatch, capsys):
+    """--debug at reduced draws (16 walkers, 4 steps, 4000 draws): the JAX
+    CLI's lines, mainchain.dat of (4, 16, D), finite quantiles, one batched
+    log-prob evaluation per half-step (plus the initial one and its
+    refresh rounds); v1 also seeds from the TNC fit."""
+    from mcmctoffitting_tpu_torch.models import simple as tsimple
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcli_simple, "DEBUG_SIZES", (16, 4, 4000))
+    evals = [0]
+    log_prob = tsimple.SimpleProblem.log_prob
+
+    def counted(self, *args, **kwargs):
+        evals[0] += 1
+        return log_prob(self, *args, **kwargs)
+
+    monkeypatch.setattr(tsimple.SimpleProblem, "log_prob", counted)
+    extra = ["--minimizeSeed"] if model == "v1" else []
+    out = tcli_simple.main(["--model", model, "--debug", "-device", "cpu"]
+                           + extra)
+    text = capsys.readouterr().out
+    n_dim = tcli_simple.MODEL_CONFIGS[model]["n_dim"]
+    assert "synthesized fake data at truth" in text
+    assert "MCMC result (median +sigma -sigma vs truth):" in text
+    assert '{"walker_steps_per_sec": ' in text
+    assert ("TNC seed: nll" in text) == (model == "v1")
+    chain, probs, n_params, n_walkers, n_steps = \
+        tchain_io.read_chain_text("mainchain.dat")
+    assert (n_steps, n_walkers, n_params) == (4, 16, n_dim)
+    assert all(np.isfinite(v).all() for v in out["quantiles"].values())
+    assert 0 <= out["initial_nonfinite"] <= 16
+    if model != "v1":
+        assert 2 * 4 + 1 <= evals[0] <= 2 * 4 + 9
+
+
+def test_template_fit_debug_with_ml_on_the_cpu(tmp_path, monkeypatch,
+                                               capsys):
+    """--debug -doML at reduced sizes (1000 draws, 16 walkers, 6 steps).
+    The ML fit is pinned to the synthesis truth, not to the JAX CLI's
+    output: the synthetic data are built from the guess coefficients and
+    the scales (1.1, 0.6, 1.5), so the start point is the truth; the fit
+    ends inside the bounds, no worse than its start, with the scales
+    within 20% of the truth (the tolerance of the JAX package's own
+    SLSQP test).  A second run reads the CSV cache back, equal to what the
+    first wrote."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcli_template, "DEBUG_SIZES", (1000, 16, 6))
+    out = tcli_template.main(["--debug", "-doML", "-device", "cpu"])
+    text = capsys.readouterr().out
+    assert "generating templates (4 standoffs x 32 slices)..." in text
+    assert "SLSQP ML fit: nll" in text
+    assert "optimized coefficients that will be used:" in text
+    ml = out["ml"]
+    x = ml["x"]
+    assert np.all(x[:3] >= [0.8, 0.25, 1.3]) and np.all(x[:3] <= [2.0, 1.0,
+                                                                   1.9])
+    assert np.all(x[3:] >= 0.0) and np.all(x[3:] <= 25_000.0)
+    assert ml["nll"] <= ml["nll_start"] + 1e-6 * abs(ml["nll_start"])
+    np.testing.assert_allclose(x[:3], [1.1, 0.6, 1.5], rtol=0.2)
+    assert np.isfinite(out["scales_median"]).all()
+    chain, _, n_params, n_walkers, _ = tchain_io.read_chain_text(
+        "tmpl_burninchain.dat")
+    assert (n_params, n_walkers) == (35, 16)
+    from mcmctoffitting_tpu_torch.models import templates as tT
+    written = tT.load_templates_csv("templates.csv", 4)
+    again = tcli_template.main(["--debug", "-device", "cpu"])
+    assert "loading templates from templates.csv" in capsys.readouterr().out
+    for a, b in zip(out["observed"], again["observed"]):
+        np.testing.assert_array_equal(a, b)
+    assert [t.shape[0] for t in written] == [32] * 4
+
+
+def test_ppc_cli_csi2016_writes_the_jax_file_set(tmp_path, monkeypatch,
+                                                 capsys):
+    """-model csi2016 on a 4-parameter skew-normal chain: the JAX CLI's
+    files and lines, bands (3, n_bins) finite and ordered."""
+    rng = np.random.default_rng(5)
+    center = np.array([900.0, 0.05, 1.0, 1e4])
+    scales = np.array([10.0, 0.005, 0.2, 500.0])
+    chain = center + scales * rng.standard_normal((10, 8, 4))
+    probs = -500.0 + rng.standard_normal((10, 8))
+    path = str(tmp_path / "old_campaign.dat")
+    tchain_io.append_chain_text(path, chain, probs)
+    argv = ["-chainFilename", path, "-model", "csi2016", "-nRuns", "2",
+            "-nSamplesFromTOF", "2000", "-nChainEntries", "3"]
+    files = {}
+    for name, main, extra in (("jax", jcli_ppc.main, []),
+                              ("port", tcli_ppc.main, ["-device", "cpu"])):
+        where = tmp_path / name
+        where.mkdir()
+        monkeypatch.chdir(where)
+        main(argv + extra)
+        files[name] = sorted(os.listdir(where))
+        assert "wrote ppc_sdef.txt" in capsys.readouterr().out
+    assert files["port"] == files["jax"]
+    from mcmctoffitting_tpu_torch.models import csi2016 as tcsi
+    windows = tcsi.Csi2016Problem(tcsi.default_spec(2000), n_runs=2,
+                                  device="cpu").windows
+    for run, win in enumerate(windows):
+        bands = np.loadtxt(tmp_path / "port" / f"ppc_run{run}_bands.txt")
+        assert bands.shape == (3, win.n_bins) and np.isfinite(bands).all()
+        assert np.all(bands[0] <= bands[1]) and np.all(bands[1] <= bands[2])

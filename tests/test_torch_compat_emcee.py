@@ -9,7 +9,8 @@ against the JAX package's, on a Gaussian target on the CPU.
 * In distribution: the chains' means and variances agree with the
   analytic posterior and with the JAX shim's, on both backends.
 * Differences by design: ``backend='jax'`` raises a ``ValueError`` that
-  names 'torch'; ``PTSampler`` raises ``not_ported`` (slice 5).
+  names 'torch'; ``PTSampler`` raises ``not_ported`` (the
+  parallel-tempering slice).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -201,5 +202,5 @@ def test_auto_lets_the_probe_s_errors_reach_the_caller():
 
 
 def test_pt_sampler_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="parallel-tempering slice"):
         temcee.PTSampler(4, 8, D, _lnpost_torch, _lnpost_torch)

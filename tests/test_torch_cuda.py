@@ -7,6 +7,8 @@ one (and without jax, which tests/conftest.py imports), run:
 
 chip_smoke.py runs the same comparisons at the forward model's full shapes.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -696,3 +698,68 @@ def test_ppc_cli_on_the_card(dev, tmp_path, monkeypatch):
     bands = np.loadtxt("ppc_run0_bands.txt")
     assert bands.shape == (3, tof_windows["mid"].n_bins)
     assert np.isfinite(bands).all() and np.all(bands[0] <= bands[2])
+
+
+# --- the remaining forward models: K4 in depth tiles, K3 per walker ------
+
+@pytest.mark.parametrize("n_x, n_bins, n_sub", [(100, 150, 4), (65, 50, 1),
+                                                (101, 3000, 1)])
+def test_transport_moments_kernel_in_depth_tiles(dev, n_x, n_bins, n_sub):
+    """The depth-tiled kernel (the templates' M = 100 x Be = 150, more
+    depths than one launch holds, and a histogram of one depth near the
+    shared-memory limit): the transported energies bit for bit, the
+    moments within 1e-5 of each row's total, per channel against the
+    float64 sums, the counts the same on a second call; a span too wide
+    for shared memory is refused."""
+    from mcmctoffitting_tpu_torch.config import Binning
+    assert 0 < cuda_transport.tile_spans(n_x, n_bins) < n_x
+    rng = np.random.default_rng(5)
+    e0 = rng.uniform(400.0, 1200.0, (9, 4000))
+    e0[:, ::53] = rng.uniform(15.0, 300.0, e0[:, ::53].shape)
+    e0 = torch.as_tensor(e0.astype(np.float32), device=dev)
+    c = stopping.rk4_constants(stopping.d2_gas_stopping(),
+                               Binning(0.0, 2.86, n_x).centers, n_sub)
+    bins = cuda_transport.MomentBins(200.0, 1700.0, n_bins)
+    got, e_kern = cuda_transport.transport_moments(e0, c, bins,
+                                                   energies_out=True)
+    torch.testing.assert_close(e_kern, stopping.rk4_transport(c, e0),
+                               rtol=0, atol=0)
+    want = cuda_transport.transport_moments_plain(e0, c, bins)
+    total = want[:, :, 0].sum(dim=(-2, -1))[:, None, None, None]
+    assert torch.all((got - want).abs() <= 1e-5 * total.clamp_min(1.0))
+    counts_equal, ratio = cuda_transport.moment_check(got, e_kern, bins)
+    assert counts_equal and ratio <= 1.0
+    # a second call: the counts the same bits; the d-channels within float
+    # rounding (flushes of several blocks meet in float atomics)
+    again = cuda_transport.transport_moments(e0, c, bins)
+    assert torch.equal(again[:, :, 0], got[:, :, 0])
+    assert torch.all((again - got).abs() <= 1e-6 * total.clamp_min(1.0))
+    assert cuda_transport.tile_spans(10, 60_000) == 0
+    with pytest.raises(ValueError, match="cannot take"):
+        cuda_transport.transport_moments(
+            e0, c, cuda_transport.MomentBins(200.0, 1700.0, 60_000))
+
+
+@pytest.mark.parametrize("n_bins, weighted", [(25, False), (50, True)])
+def test_weighted_hist_kernel_at_the_simple_family_shape(dev, n_bins,
+                                                         weighted):
+    """K3 on one half-step of the simple family: 50 rows of 200k TOF
+    values (v0: 25 bins, no weights; v2: 50 bins, cross-section weights),
+    rows that blocks share: within 1e-6 of each row's total, the same on a
+    second call."""
+    rng = np.random.default_rng(6)
+    v = torch.as_tensor(rng.normal(190.0, 9.0, (50, 200_000)).astype(
+        np.float32), device=dev)
+    w = (torch.as_tensor(rng.uniform(20.0, 40.0, v.shape).astype(np.float32),
+                         device=dev) if weighted else torch.ones_like(v))
+    hi = 200.0 if n_bins == 25 else 225.0
+    blocks = ctypes.c_longlong()
+    load_library().lib.mcmctof_weighted_hist_blocks(
+        50, 200_000, n_bins, dev.index, ctypes.byref(blocks))
+    assert blocks.value > 50      # the float64 parts path: rows split
+    got = cuda_hist.weighted_histogram(v, 175.0, hi, n_bins, w)
+    want = cuda_hist.weighted_histogram_plain(v, 175.0, hi, n_bins, w)
+    total = want.sum(-1, keepdim=True)
+    assert torch.all((got - want).abs() <= 1e-6 * total)
+    assert torch.equal(got, cuda_hist.weighted_histogram(v, 175.0, hi,
+                                                         n_bins, w))

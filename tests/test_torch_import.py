@@ -50,7 +50,9 @@ NEW_MODULES = ("cli._driver", "cli._entry", "cli.simult_fit",
                "sampler.transforms", "sampler._adapt", "sampler.hmc",
                "sampler.nuts", "utils.optimize", "utils.ppc", "cli.ppc",
                "utils.plotting", "cli.plot_chain", "utils.profiling",
-               "compat", "compat.emcee")
+               "compat", "compat.emcee", "models.simple", "models.templates",
+               "models.csi2016", "models.fixed_params", "cli.simple_tof",
+               "cli.template_fit")
 
 
 def test_every_module_is_among_those_imported():
@@ -135,21 +137,69 @@ def test_post_processing_clis_run_without_jax_or_matplotlib(tmp_path):
             "ppc_sdef.txt"} <= set(os.listdir(tmp_path))
 
 
+_RUN_MODELS = """
+import sys
+for blocked in ('jax', 'triton', 'mcmctoffitting_tpu', 'matplotlib'):
+    sys.modules[blocked] = None
+import numpy as np
+from mcmctoffitting_tpu_torch.cli import ppc, simple_tof, template_fit
+from mcmctoffitting_tpu_torch.utils import chain_io
+simple_tof.DEBUG_SIZES = (8, 2, 2000)
+simple_tof.main(['--model', 'v2', '--debug', '-device', 'cpu'])
+from mcmctoffitting_tpu_torch.models import templates
+rng = np.random.default_rng(0)
+templates.save_templates_csv('templates.csv', [
+    rng.random((32, w.n_bins)) for w in
+    templates.TemplateFitProblem(device='cpu').windows])
+template_fit.DEBUG_SIZES = (300, 8, 2)
+template_fit.main(['--debug', '-device', 'cpu'])
+chain = (np.array([900.0, 0.05, 1.0, 1e4])
+         * (1 + 1e-3 * rng.standard_normal((10, 4, 4))))
+chain_io.append_chain_text('old.dat', chain, -rng.random((10, 4)))
+ppc.main(['-chainFilename', 'old.dat', '-model', 'csi2016', '-device',
+          'cpu', '-nRuns', '2', '-nSamplesFromTOF', '1000',
+          '-nChainEntries', '2'])
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and m.split('.')[0] in ('jax', 'jaxlib', 'triton',
+                                  'mcmctoffitting_tpu', 'matplotlib')]
+assert not loaded, loaded
+"""
+
+
+def test_remaining_model_clis_run_without_jax_or_matplotlib(tmp_path):
+    """cli.simple_tof, cli.template_fit (on a template cache) and cli.ppc
+    -model csi2016 with jax, the JAX package and matplotlib blocked, at
+    tiny sizes on the CPU: their files, and the missing-matplotlib line
+    of template_fit."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _RUN_MODELS], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "plotting skipped: matplotlib is not installed" in proc.stdout
+    assert "wrote ppc_sdef.txt" in proc.stdout
+    assert "loading templates from templates.csv" in proc.stdout
+    assert {"mainchain.dat", "tmpl_burninchain.dat",
+            "ppc_run1_bands.txt"} <= set(os.listdir(tmp_path))
+
+
 def test_console_scripts_do_not_collide():
-    """pyproject names the port's four scripts beside the JAX package's."""
+    """pyproject names the port's six scripts beside the JAX package's."""
     import tomllib
     scripts = tomllib.loads((REPO / "pyproject.toml").read_text())[
         "project"]["scripts"]
     entries = {"mcmctof-torch-simult-fit": "simult_fit",
                "mcmctof-torch-csi-onebd": "csi_onebd",
                "mcmctof-torch-ppc": "ppc",
-               "mcmctof-torch-plot-chain": "plot_chain"}
+               "mcmctof-torch-plot-chain": "plot_chain",
+               "mcmctof-torch-simple-tof": "simple_tof",
+               "mcmctof-torch-template-fit": "template_fit"}
     from mcmctoffitting_tpu_torch.cli import _entry
     for script, fn in entries.items():
         assert scripts[script] == \
             f"mcmctoffitting_tpu_torch.cli._entry:{fn}"
         assert callable(getattr(_entry, fn))
-    assert len(set(scripts)) == len(scripts) == 11
+    assert len(set(scripts)) == len(scripts) == 13
 
 
 def test_kernel_modules_import_without_nvcc():

@@ -287,8 +287,8 @@ def test_xs_per_sample_within_one_ulp():
 
 
 def test_spec_combinations():
-    """The mc path's spec rules: the JAX package's fall-back and errors,
-    and what the port does not run yet."""
+    """The mc path's spec rules: the JAX package's fall-back and errors;
+    the redraw rounds earlier slices refused build a spec now."""
     spec = tsimult.default_spec(1000, transport="rk4", sampling="mc")
     assert (spec.xs_mode, spec.transport, spec.stopping_table,
             spec.e0_grid_table) == ("taylor", "rk4", None, None)
@@ -296,8 +296,9 @@ def test_spec_combinations():
         dataclasses.replace(spec, xs_mode="e0grid")
     with pytest.raises(ValueError, match="stopping"):
         dataclasses.replace(spec, stopping=None)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        dataclasses.replace(spec, n_redraw_rounds=3)
+    assert dataclasses.replace(spec, n_redraw_rounds=3).n_redraw_rounds == 3
+    with pytest.raises(ValueError, match="beam_source"):
+        dataclasses.replace(spec, beam_source="cauchy")
     with pytest.raises(ValueError, match="transport='table'"):
         tsimult.default_spec(1000, transport="rk4", sampling="counts")
     with pytest.raises(ValueError, match="transport='table'"):
