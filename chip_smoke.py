@@ -4,7 +4,9 @@ NVIDIA GPU: builds the CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the forward models' shapes, times both beside
 their bounds, and drives the fits through the library's entry points at
 full width (256 walkers x 200k draws, DE move); then the simple family,
-the template unfolding and the csi2016 PPC through their CLIs.
+the template unfolding and the csi2016 PPC through their CLIs; then
+parallel tempering: the shifting-Gaussian study and PT on the TOF
+posterior through their CLI, and emcee's PTSampler.
 simultFit (4 runs): the counts estimator (F = 512), the mc estimator on
 the literal ODE path (transport='rk4') with xs_mode 'taylor' and
 'exact', the default mc estimator on the stopping table (e0grid, F = 256) and the 'expected'
@@ -32,7 +34,8 @@ Phases (any failure raises; the exit code is then non-zero):
      energies (128 walkers x 4 runs x 200k): bins equal on >= 99.99% of
      (sample, depth) pairs, moments within 1e-5 of each row's total, and
      per channel against the float64 sums of its energies' channels
-     (counts exact, d-channels within their fixed-point steps);
+     (counts exact, d-channels within their fixed-point steps), and every
+     channel the same bits on a second call;
   5. K3 weighted-histogram kernel vs plain on that half-step's transported
      energies and cross sections (5,120 rows x 200k), within 1e-6 of each
      row's total, the same on a second call, and its np.histogram edge
@@ -144,6 +147,24 @@ Then the remaining forward models (before phase 11 too):
      times; cli.ppc -model csi2016 at the CLI defaults (100 draws x 50k)
      on a synthetic skew-normal chain: bands and SDEF card well formed, K4
      and K2 once per chunk, K1 and K3 never; PPC draws/s cold and warm.
+Then parallel tempering (before phase 11 too):
+ 22. (a) the tempered stretch and DE cores and the replica-exchange core
+     at (20, 100, 3), the same draws on the card and the CPU: positions,
+     log-likelihoods, log-priors, accept masks and swap counts equal; (b)
+     cli.shifting_gaussian at its defaults (ensemble 100 x 500, then PT
+     20 temperatures x 100 walkers, 1000 + 10000 steps thin 10): PT and
+     ensemble walker-steps/s, every rung's swap acceptance in (0, 1), the
+     cold medians of sigma and 5m + b near the truth, ln Z finite with an
+     error below 1; (c) -model tof at full width (20 x 100 walkers, 2 runs,
+     50k draws, 20 + 60 steps): PT walker-steps/s, device ms per step
+     (torch.profiler over 3 steps; then the analytic step's over 20), K1
+     and K2 once per half-update, peak
+     device memory, initial log-likelihoods finite on >= 98% of the
+     walkers, a finite beamE span, swap acceptances in [0, 1]; K1 and K2
+     at one half-update's shapes ((1000) x 2 rates, (1000, 2, 10, 50)
+     lattice) against their plain versions, with times and bounds; (d)
+     compat.emcee.PTSampler with a torch log-likelihood on the card,
+     sample -> reset -> sample: chain (T, W, S, D), lnlikelihood (T, W, S).
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
@@ -168,12 +189,15 @@ from mcmctoffitting_tpu_torch.cli import _driver as cli_driver
 from mcmctoffitting_tpu_torch.cli import csi_onebd as cli_onebd
 from mcmctoffitting_tpu_torch.cli import plot_chain as cli_plot_chain
 from mcmctoffitting_tpu_torch.cli import ppc as cli_ppc
+from mcmctoffitting_tpu_torch.cli import shifting_gaussian as cli_sg
 from mcmctoffitting_tpu_torch.cli import simple_tof as cli_simple
 from mcmctoffitting_tpu_torch.cli import simult_fit as cli_simult
 from mcmctoffitting_tpu_torch.cli import template_fit as cli_template
+from mcmctoffitting_tpu_torch.compat import emcee as emcee_shim
 from mcmctoffitting_tpu_torch.models import (csi2016, onebd, simple, simult,
                                              templates)
 from mcmctoffitting_tpu_torch.models import problem as problem_mod
+from mcmctoffitting_tpu_torch.models import shifting_gaussian as sg_model
 from mcmctoffitting_tpu_torch.models.forward import exact_rows_per_chunk
 from mcmctoffitting_tpu_torch.ops import cuda_build, cuda_hist, cuda_transport
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
@@ -441,6 +465,7 @@ def phase_transport(e0, rk4, bins):
     require(rel <= 1e-5, "K4 moments within 1e-5 of each row's total")
     require(counts_equal, "K4 count channel exact")
     require(ratio <= 1.0, "K4 d-channels within their fixed-point steps")
+    k4_second_call(e0, rk4, bins, kern, "phase 4")
     return err.max().item(), e_plain, plain
 
 
@@ -1712,20 +1737,18 @@ def k4_check_tiled(e0, rk4, bins, label):
     require(rel <= 1e-5, f"{label}: K4 moments within 1e-5 of the row total")
     require(counts_equal, f"{label}: K4 count channel exact")
     require(ratio <= 1.0, f"{label}: K4 d-channels within their steps")
-    # a second call: the count channel the same bits (integers, exact in
-    # float32); the d-channels may differ in the last bit, where three or
-    # more blocks' flushes meet in a cell (float atomics, in no fixed order)
-    again = cuda_transport.transport_moments(e0, rk4, bins)
-    total = kern[:, :, 0].sum(dim=(-2, -1))[:, None, None, None]
-    drift = ((again - kern).abs() / total.clamp_min(1.0)).max().item()
-    log(f"{label}: a second call: counts equal "
-        f"{torch.equal(again[:, :, 0], kern[:, :, 0])}, every channel "
-        f"equal {torch.equal(again, kern)}, max|diff| {drift:.2e} of the row "
-        f"total")
-    require(torch.equal(again[:, :, 0], kern[:, :, 0]) and drift <= 1e-6,
-            f"{label}: K4 counts the same on a second call, moments within "
-            f"1e-6 of the row total")
+    k4_second_call(e0, rk4, bins, kern, label)
     return max_err, in_range
+
+
+def k4_second_call(e0, rk4, bins, first, label):
+    """A second K4 call on the same energies gives the same bits in every
+    channel: the blocks' sums meet in int64 and are rounded once."""
+    again = cuda_transport.transport_moments(e0, rk4, bins)
+    same = torch.equal(again, first)
+    log(f"{label}: a second K4 call on {tuple(e0.shape)}: every channel "
+        f"the same bits {same}")
+    require(same, f"{label}: K4 the same bits on a second call")
 
 
 def k4_bound(e0, rk4, bins, in_range_pairs):
@@ -1990,6 +2013,289 @@ def phase_csi2016(dev, smi, tmp, rate, launches):
             "generate_s": res["generate_s"], "warm_generate_s": warm,
             "k4": k4}
 
+
+# --- phase 22: parallel tempering -----------------------------------------
+
+PT_T, PT_W = 20, 100                 # the CLI's -nTemps, -ptWalkers
+PT_TOF_BURN, PT_TOF_STEPS = 20, 60   # -model tof at full width, depth cut
+PT_PROFILE_STEPS = 3
+
+
+def _quadratic(theta):
+    """A log-density whose every operation is elementwise and in a fixed
+    order, so the card and the CPU compute the same bits."""
+    x, y, z = theta[..., 0], theta[..., 1], theta[..., 2]
+    return -0.5 * (((x - 0.3) * (x - 0.3) + y * y) + 4.0 * z * z)
+
+
+def _box(theta):
+    return torch.where(torch.all(theta.abs() < 2.5, dim=-1), 0.0, -torch.inf)
+
+
+def phase_pt_cores(dev):
+    """Phase 22a: the tempered stretch and DE cores and the exchange core at
+    the CLI's widths (20 x 100 x 3), the same draws on the card and the
+    CPU: positions, log-likelihoods, log-priors, accept masks and swap
+    counts equal."""
+    rng = np.random.default_rng(221)
+    n_half = PT_W // 2
+    pos0 = rng.normal(0.0, 1.0, (PT_T, PT_W, 3)).astype(np.float32)
+    betas = sampler.default_beta_ladder(PT_T).astype(np.float32)
+    draws = {
+        "u": rng.random((PT_T, n_half), np.float32),
+        "j": rng.integers(0, n_half, (PT_T, n_half)),
+        "j2": rng.integers(0, n_half - 1, (PT_T, n_half)),
+        "g": (0.97 * (1 + 0.1 * rng.standard_normal((PT_T, n_half)))
+              ).astype(np.float32),
+        "log_u": np.log(rng.random((PT_T, n_half))).astype(np.float32),
+        "perms": np.stack([rng.permutation(PT_W) for _ in range(PT_T - 1)]),
+        "log_u_x": np.log(rng.random((PT_T - 1, PT_W))).astype(np.float32),
+    }
+
+    def run(where):
+        t = {k: torch.tensor(v, device=where) for k, v in draws.items()}
+        pos = torch.tensor(pos0, device=where)     # a copy: updated in place
+        ll, lp = _quadratic(pos), _box(pos)
+        b = torch.as_tensor(betas, device=where)
+
+        def evaluate(prop):
+            return _quadratic(prop), _box(prop)
+
+        acc = [sampler.tempered_stretch_core(
+            pos, ll, lp, b, 0, t["u"], t["j"], t["log_u"], evaluate)]
+        j2 = (t["j"] + 1 + t["j2"]) % n_half
+        acc.append(sampler.tempered_de_core(pos, ll, lp, b, 1, t["g"],
+                                            t["j"], j2, t["log_u"],
+                                            evaluate))
+        swaps = sampler.replica_exchange_core(pos, ll, lp, b, t["perms"],
+                                              t["log_u_x"])
+        return [v.cpu() for v in (pos, ll, lp, *acc, swaps)]
+
+    card, cpu = run(dev), run("cpu")
+    names = ("positions", "log-likelihoods", "log-priors",
+             "stretch accepts", "DE accepts", "swap accepts")
+    equal = {n: torch.equal(a, b) for n, a, b in zip(names, card, cpu)}
+    n_swaps = card[-1].sum(1)
+    log(f"phase 22a: tempered stretch, DE and exchange cores at ({PT_T}, "
+        f"{PT_W}, 3), the same draws, card vs CPU equal: {equal}; accepts "
+        f"{int(card[3].sum())} + {int(card[4].sum())} of "
+        f"{2 * PT_T * n_half}, swaps per pair {n_swaps.tolist()}")
+    require(all(equal.values()), f"22a: cores card vs CPU {equal}")
+    require(torch.equal(n_swaps, cpu[-1].sum(1)), "22a: n_swaps_accepted")
+    return {"equal": equal, "swaps": n_swaps.tolist()}
+
+
+def k12_at_pt_shapes(dev, smi, forward, thetas, n_runs):
+    """K1 and K2 at one tempered half-update of -model tof (T x W/2 walkers
+    x n_runs): each against its plain version (K1 draw for draw, K2 as
+    phase 3 holds it), their device times in turns, bounds, plain and
+    library times; the kernels line's rows at these shapes."""
+    params = thetas[:, :4]
+    rates = forward.counts_rates(params).lam                 # (N, F + 2)
+    lam = rates[:, None].expand(-1, n_runs, -1).contiguous()
+    kern = poisson(rates, (41, 42), n_runs=n_runs)
+    plain = plain_poisson.poisson_ptrs(lam, (41, 42))
+    k1_err = (kern - plain).abs().max().item()
+    same = (kern == plain).double().mean().item()
+    require(same >= 0.999, "22c: K1 == plain at the PT shape")
+    grids, e0_means = forward.grid_and_mean(params,
+                                            torch.Generator().manual_seed(43))
+    base, draws = forward.lattice(grids, e0_means)
+    base, draws = base.contiguous(), draws.contiguous()
+    k2_err = phase_tof(dev, base, draws, forward, "phase 22c")
+    zt, zw, win = forward.zt, forward.zw, forward.win
+    calls = {"poisson": lambda: poisson(rates, (5, 6), n_runs=n_runs),
+             "tof_hist": lambda: tof_hist_segments(base, draws, zt, zw, win)}
+    ms = devtime.graphs_in_turns(calls)
+    vals = base[..., None] + zt
+    k2_in = ((vals >= win.lo[:, None, None, None])
+             & (vals <= win.hi[:, None, None, None])).sum().item()
+    del vals
+    rows = {
+        "poisson": {
+            "shape": list(lam.shape), "max_abs_err": k1_err,
+            "equal_share": same, "ms": ms["poisson"],
+            "plain_ms": cuda_ms(lambda: plain_poisson.poisson_ptrs(
+                lam, (5, 6)), reps=10),
+            "library_ms": devtime.graph_ms(lambda: torch.poisson(lam)),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                4 * (rates.numel() + lam.numel()), 130 * lam.numel())))},
+        "tof_hist": {
+            "shape": list(base.shape), "max_abs_err": k2_err,
+            "ms": ms["tof_hist"],
+            "plain_ms": cuda_ms(lambda: tof_hist_segments_plain(
+                base, draws, zt, zw, win)),
+            "library_ms": None,
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                4 * (2 * base.numel() + 2 * zt.numel()
+                     + base.shape[0] * n_runs * win.n_pad),
+                4 * base.numel() * zt.shape[1] + 5 * k2_in)))},
+    }
+    for name, row in rows.items():
+        lib = row["library_ms"]
+        log(f"phase 22c ({smi}): {name} {tuple(row['shape'])} (one tempered "
+            f"half-update): kernel {row['ms']:.5f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.5f} ms'}, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}), max|diff| "
+            f"{row['max_abs_err']:g}")
+    return rows
+
+
+def phase_pt(dev, smi, tmp, rate, launches):
+    """Phase 22: parallel tempering.  (a) the cores card vs CPU; (b)
+    cli.shifting_gaussian at its defaults; (c) -model tof at full width;
+    (d) compat.emcee.PTSampler on the card."""
+    out = {"cores": phase_pt_cores(dev)}
+
+    label = "phase 22b (shifting_gaussian, analytic, defaults)"
+    where = tmp / "pt_analytic"
+    where.mkdir()
+    res, _, _, used = run_cli(cli_sg, [], where, label)
+    swaps = res["pt_swap_acceptance"]
+    sigma, mid = res["pt"]["sigma"], 5 * res["pt"]["m"] + res["pt"]["b"]
+    ln_z, d_ln_z = res["pt_ln_evidence"]
+    log(f"{label} ({smi}): {PT_T} temps x {PT_W} walkers, 1000 + 10000 "
+        f"steps thin 10: {res['pt_walker_steps_per_sec']:.1f} PT "
+        f"walker-steps/s; ensemble (100 walkers x 500 steps) "
+        f"{res['ensemble_walker_steps_per_sec']:.1f} walker-steps/s; swap "
+        f"acceptance per rung {np.round(swaps, 4).tolist()}; ln Z = "
+        f"{ln_z:.4f} +- {d_ln_z:.4f}; cold medians sigma {sigma:.4f}, "
+        f"5m + b {mid:.4f}")
+    require(len(swaps) == PT_T - 1 and all(0.0 < a < 1.0 for a in swaps),
+            f"{label}: every rung's swap acceptance in (0, 1)")
+    require(abs(sigma - 0.4) < 0.2 and abs(mid - 3.5) < 0.25,
+            f"{label}: cold medians near the truth")
+    require(np.isfinite(ln_z) and 0.0 <= d_ln_z < 1.0,
+            f"{label}: ln Z finite with an error below 1")
+    require(not any(used.values()), f"{label}: no kernel launched ({used})")
+    rate["cli_pt_analytic"] = res["pt_walker_steps_per_sec"]
+    rate["cli_pt_analytic_ensemble"] = res["ensemble_walker_steps_per_sec"]
+    launches["cli_pt_analytic"] = used
+    out["analytic"] = {k: res[k] for k in (
+        "pt_walker_steps_per_sec", "ensemble_walker_steps_per_sec",
+        "pt_swap_acceptance", "pt_ln_evidence", "pt", "ensemble")}
+
+    label = "phase 22c (shifting_gaussian -model tof)"
+    where = tmp / "pt_tof"
+    where.mkdir()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, _, evals, used = run_cli(
+        cli_sg, ["-model", "tof", "-ptBurnin", str(PT_TOF_BURN),
+                 "-ptSteps", str(PT_TOF_STEPS)], where, label)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    halves = 2 * (PT_TOF_BURN + PT_TOF_STEPS)
+    # the forward runs once for the synthetic data and once for the
+    # initial walkers; every other evaluation is a half-update's
+    per_half = {k: (used[k] - 2) / halves for k in ("poisson", "tof_hist")}
+    ms_per_step = 1e3 * PT_T * PT_W / res["pt_walker_steps_per_sec"]
+    problem, _, loglike, logprior, p0 = cli_sg.tof_pt_setup(0, PT_T, PT_W,
+                                                            dev)
+    state = sampler.init_pt_state(
+        p0, loglike, logprior, generator=torch.Generator(dev).manual_seed(1),
+        eval_generator=torch.Generator().manual_seed(2))
+    step = sampler.make_pt_step(loglike, logprior,
+                                sampler.default_beta_ladder(PT_T))
+    k12 = k12_at_pt_shapes(dev, smi, problem.forward,
+                           p0.reshape(-1, problem.n_dim)[: PT_T * PT_W // 2],
+                           problem.n_runs)
+    holder = [state]
+
+    def one_step():
+        holder[0] = step(holder[0])[0]
+
+    dev_ms, host_ms = devtime.profiler_call_ms(one_step, PT_PROFILE_STEPS)
+    # the analytic branch's step at its widths, profiled the same way (here,
+    # after every timed CLI run of the phase)
+    data = sg_model.generate_data(torch.Generator(dev).manual_seed(3), 500,
+                                  *cli_sg.TRUTH)
+    sg_ll, sg_lp = sg_model.make_pt_fns(data, numeric=True)
+    p_sg = torch.as_tensor(cli_sg.TRUTH, device=dev) + 1e-3 * torch.randn(
+        (PT_T, PT_W, 3), generator=torch.Generator(dev).manual_seed(4),
+        device=dev)
+    sg_step = sampler.make_pt_step(lambda th, g: sg_ll(th),
+                                   lambda th, g: sg_lp(th),
+                                   sampler.default_beta_ladder(PT_T))
+    sg_holder = [sampler.init_pt_state(
+        p_sg, lambda th, g: sg_ll(th), lambda th, g: sg_lp(th),
+        generator=torch.Generator(dev).manual_seed(5),
+        eval_generator=torch.Generator().manual_seed(6))]
+
+    def one_sg_step():
+        sg_holder[0] = sg_step(sg_holder[0])[0]
+
+    sg_dev_ms, sg_host_ms = devtime.profiler_call_ms(one_sg_step, 20)
+    log(f"phase 22b ({smi}): the analytic step profiled: device "
+        f"{sg_dev_ms:.3f} ms per step of {sg_host_ms:.3f} ms "
+        f"(torch.profiler, 20 steps; the CLI's clock "
+        f"{1e3 * PT_T * PT_W / rate['cli_pt_analytic']:.3f} ms)")
+    out["analytic"].update(device_ms_per_step=sg_dev_ms,
+                           profiled_host_ms_per_step=sg_host_ms)
+    span, swaps = res["beamE_span_keV"], res["swap_acceptance"]
+    log(f"{label} ({smi}): {PT_T} temps x {PT_W} walkers x 2 runs x 50k "
+        f"draws, {PT_TOF_BURN} + {PT_TOF_STEPS} steps (depth cut): "
+        f"{res['pt_walker_steps_per_sec']:.1f} PT walker-steps/s "
+        f"({ms_per_step:.3f} ms per step, the CLI's clock); device "
+        f"{dev_ms:.3f} ms per step of {host_ms:.3f} ms (torch.profiler, "
+        f"{PT_PROFILE_STEPS} steps); {evals} forward evaluations, K1 "
+        f"{per_half['poisson']:g} and K2 {per_half['tof_hist']:g} launches "
+        f"per half-update; peak device memory {peak_gb:.3f} GB; initial "
+        f"log-likelihoods finite on {res['initial_finite_fraction']:.4f}; "
+        f"beamE span {span:.2f} keV; swap acceptance "
+        f"{np.round(swaps, 4).tolist()}; ln Z {res['pt_ln_evidence']}")
+    require(evals == halves + 2 and per_half["poisson"] == 1
+            and per_half["tof_hist"] == 1 and used["weighted_hist"]
+            == used["transport_moments"] == used["K2-bwd"] == 0,
+            f"{label}: K1 and K2 once per half-update ({used}, {evals} "
+            f"evaluations)")
+    require(res["initial_finite_fraction"] >= 0.98,
+            f"{label}: initial log-likelihoods finite on >= 98%")
+    require(np.isfinite(span), f"{label}: finite cold-chain beamE span")
+    require(len(swaps) == PT_T - 1 and all(0.0 <= a <= 1.0 for a in swaps),
+            f"{label}: swap acceptances in [0, 1]")
+    rate["cli_pt_tof"] = res["pt_walker_steps_per_sec"]
+    launches["cli_pt_tof"] = dict(used, log_like_evaluations=evals - 1,
+                                  half_updates=halves)
+    for name in k12:
+        k12[name]["launches_per_half_update"] = per_half[name]
+    out["k12"] = k12
+    out["tof"] = {"pt_walker_steps_per_sec": res["pt_walker_steps_per_sec"],
+                  "ms_per_step": ms_per_step, "device_ms_per_step": dev_ms,
+                  "profiled_host_ms_per_step": host_ms,
+                  "launches_per_half_update": per_half,
+                  "peak_memory_gb": peak_gb,
+                  "initial_finite_fraction": res["initial_finite_fraction"],
+                  "beamE_span_keV": span, "swap_acceptance": swaps,
+                  "pt_ln_evidence": res["pt_ln_evidence"]}
+    del problem, state, holder, p0, sg_holder
+
+    # 22d: the emcee shim with a torch log-likelihood on the card
+    n_t, n_w, n_dim = 8, 32, 2
+    pt_shim = emcee_shim.PTSampler(
+        n_t, n_w, n_dim, lambda p: -0.5 * torch.sum(p * p, dim=-1),
+        lambda p: torch.zeros(p.shape[0], device=p.device), seed=4)
+    p0 = 1e-3 * np.random.default_rng(5).standard_normal((n_t, n_w, n_dim))
+    for p, lnp, lnl in pt_shim.sample(p0, iterations=20):
+        pass
+    pt_shim.reset()
+    for p, lnp, lnl in pt_shim.sample(p, lnprob0=lnp, lnlike0=lnl,
+                                      iterations=40, thin=2):
+        pass
+    shapes = (pt_shim.chain.shape, pt_shim.lnlikelihood.shape)
+    log(f"phase 22d: compat.emcee.PTSampler on {pt_shim.device}, backend "
+        f"{pt_shim.backend}: sample -> reset -> sample, chain {shapes[0]}, "
+        f"lnlikelihood {shapes[1]}, swap acceptance "
+        f"{np.round(pt_shim.tswap_acceptance_fraction, 3).tolist()}")
+    require(pt_shim.backend == "torch" and pt_shim.device.type == "cuda"
+            and shapes == ((n_t, n_w, 20, n_dim), (n_t, n_w, 20)),
+            "22d: PTSampler's chain (T, W, S, D) and lnlikelihood (T, W, S) "
+            "on the card")
+    require(bool(np.all(np.isfinite(pt_shim.lnlikelihood))),
+            "22d: finite log-likelihoods")
+    out["shim"] = {"chain": list(shapes[0]),
+                   "lnlikelihood": list(shapes[1])}
+    return out
 
 
 def main():
@@ -2291,6 +2597,12 @@ def main():
         torch.cuda.empty_cache()
         csi_out = phase_csi2016(dev, smi, Path(tmp), rate, launches)
 
+    # phase 22: parallel tempering (before phase 11 too; its profile of
+    # the tempered step is the first profiler of the process)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pt_") as tmp:
+        torch.cuda.empty_cache()
+        pt_out = phase_pt(dev, smi, Path(tmp), rate, launches)
+
     # phase 11: the second cross-check of phase 6's device times, the kernel
     # durations torch.profiler reports for eager calls.  It comes last: once
     # the profiler has run in a process, every later launch costs the host
@@ -2330,8 +2642,10 @@ def main():
                               "mc_taylor"),
     }
     extra_shapes = {
+        "poisson": {"at_pt_tof_shape": pt_out["k12"]["poisson"]},
         "weighted_hist": {"at_simple_shapes": simple_out["k3"]},
-        "tof_hist": {"at_templates_shape": templates_out["k2"]},
+        "tof_hist": {"at_templates_shape": templates_out["k2"],
+                     "at_pt_tof_shape": pt_out["k12"]["tof_hist"]},
         "transport_moments": {
             "at_templates_shape": templates_out["k4"],
             "at_csi2016_ppc_shape": csi_out["k4"]},
@@ -2360,7 +2674,8 @@ def main():
             "launches_cli": {run: launches[f"cli_{run}"][name]
                              for run in (*CLI_RUNS, *GRAD_RUNS,
                                          *PPC_RUNS, *SIMPLE_RUNS,
-                                         "template_fit", "ppc_csi2016")},
+                                         "template_fit", "ppc_csi2016",
+                                         "pt_analytic", "pt_tof")},
             # the remaining forward models (phases 19-21): each kernel at
             # its shapes there, with its own error, times and bound
             **extra_shapes.get(name, {})})
@@ -2400,7 +2715,9 @@ def main():
                           k: v for k, v in templates_out.items()
                           if k not in ("k4", "k2")},
                       "csi2016_ppc": {k: v for k, v in csi_out.items()
-                                      if k != "k4"}}))
+                                      if k != "k4"},
+                      "parallel_tempering": {
+                          k: v for k, v in pt_out.items() if k != "k12"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """Console-script entry points (pyproject ``[project.scripts]``:
 ``mcmctof-torch-simult-fit``, ``mcmctof-torch-csi-onebd``,
 ``mcmctof-torch-ppc``, ``mcmctof-torch-plot-chain``,
-``mcmctof-torch-simple-tof``, ``mcmctof-torch-template-fit``).
+``mcmctof-torch-simple-tof``, ``mcmctof-torch-template-fit``,
+``mcmctof-torch-shifting-gaussian``).
 
 Each CLI's ``main()`` returns its result dict so tests and library
 callers can assert on it; a console script ``sys.exit()``s the return
@@ -37,4 +38,9 @@ def simple_tof() -> None:
 
 def template_fit() -> None:
     from . import template_fit as m
+    m.main()
+
+
+def shifting_gaussian() -> None:
+    from . import shifting_gaussian as m
     m.main()

@@ -6,7 +6,9 @@ nDim, lnprob, kwargs={...}, threads=N)`` with the ``for pos, prob, rstate
 in sampler.sample(...)`` segment loop (``tests/simultFit.py:701-790``,
 ``tests/csi_oneBD.py:863-947``).  This module reproduces that class's
 construction, generator, attribute and layout conventions, so that such
-scripts run unmodified while the moves execute on the port's samplers.
+scripts run unmodified while the moves execute on the port's samplers;
+``PTSampler`` does the same for emcee 2's parallel-tempering sampler
+(``tests/shiftingGaussian_brute.py:352-363``).
 
 Two execution backends, chosen at the first ``sample()``:
 
@@ -44,8 +46,10 @@ here, and ``backend='jax'`` raises a ``ValueError`` that says so; 'auto'
 reads the probe's result instead of catching its failure (the JAX shim
 catches a tracing failure, before anything ran on the device; here the
 probe is a real call on the device, whose failure is not a choice of
-backend); ``PTSampler`` waits for the port's parallel tempering
-(``sampler/pt.py``) and raises ``NotImplementedError``.
+backend).  ``PTSampler`` follows the same rules: its torch backend runs
+``sampler/pt.py`` with ``logl`` and ``logp`` as batched functions of (N, D)
+tensors, its host backend the numpy loop over walkers, and 'auto' chooses
+by what the two functions return on the initial walkers.
 """
 from __future__ import annotations
 
@@ -55,7 +59,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..models.forward import not_ported, resolve_device
+from ..models.forward import resolve_device
+from ..sampler import pt as _pt
 from ..sampler import stretch as _stretch
 from ..utils.diagnostics import integrated_autocorr_time
 
@@ -308,10 +313,268 @@ class EnsembleSampler:
 
 
 class PTSampler:
-    """emcee 2's parallel-tempering sampler: it waits for the port of
-    ``sampler/pt.py`` and raises ``NotImplementedError``."""
+    """emcee-2-compatible parallel-tempering sampler.
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("compat/emcee.py::PTSampler (sampler/pt.py)",
-                         "the parallel-tempering slice: sampler/pt.py and "
-                         "shifting_gaussian")
+    Construction and generator semantics match the reference's use
+    (``tests/shiftingGaussian_brute.py:352-363``): ``PTSampler(ntemps,
+    nwalkers, dim, logl, logp, loglkwargs=...)``, ``.sample(p0,
+    lnprob0=, lnlike0=, iterations=, thin=)`` yielding ``(p, lnprob,
+    lnlike)``, ``.reset()``, ``.chain`` (ntemps, nwalkers, steps, dim),
+    plus ``thermodynamic_integration_log_evidence``.  Backends as the
+    ensemble sampler's: ``torch`` runs ``sampler/pt.py``'s tempered stretch
+    and exchange on ``device`` with ``logl`` and ``logp`` as batched
+    functions of (N, D) tensors; ``host`` is a numpy loop over walkers of
+    one-walker functions; ``'auto'`` calls both functions once on the
+    initial walkers as an (N, D) tensor and chooses by what they return,
+    letting their exceptions through.
+    """
+
+    def __init__(self, ntemps: int, nwalkers: int, dim: int,
+                 logl: Callable, logp: Callable, *,
+                 a: float = 2.0, betas=None,
+                 threads: int = 1, pool: Any = None,
+                 loglargs=None, logpargs=None,
+                 loglkwargs=None, logpkwargs=None,
+                 seed: int = 0, backend: str = "auto", device="cuda"):
+        if nwalkers % 2:
+            raise ValueError("nwalkers must be even")
+        del threads, pool
+        if backend not in ("auto", "torch", "host"):
+            raise ValueError(
+                f"backend must be auto|torch|host, got {backend}")
+        self.ntemps, self.nwalkers, self.dim, self.a = (ntemps, nwalkers,
+                                                        dim, a)
+        self.betas = np.asarray(
+            _pt.default_beta_ladder(ntemps) if betas is None else betas,
+            np.float64)
+        if self.betas.shape != (ntemps,):
+            raise ValueError("betas must have shape (ntemps,)")
+        self._logl = _wrap(logl, loglargs, loglkwargs)
+        self._logp = _wrap(logp, logpargs, logpkwargs)
+        self._backend_req = backend
+        self.backend: Optional[str] = None
+        self.device = None if backend == "host" else resolve_device(device)
+        self._seed = seed
+        self._rng = np.random.default_rng(seed)
+        self._state: Optional[_pt.PTState] = None
+        self.reset()
+
+    def reset(self):
+        self._stack_cache = {}   # same-length reuse after reset = stale
+        self._pos_steps: list[np.ndarray] = []    # each (T, W, D)
+        self._ll_steps: list[np.ndarray] = []     # each (T, W)
+        self._lp_steps: list[np.ndarray] = []     # tempered lnprob (T, W)
+        self._naccepted = np.zeros((self.ntemps, self.nwalkers))
+        self._nswap = np.zeros(self.ntemps)
+        self._nswap_accepted = np.zeros(self.ntemps)
+        self.iterations = 0
+
+    # -- emcee surface -------------------------------------------------
+    @property
+    def chain(self) -> np.ndarray:
+        """(ntemps, nwalkers, nsteps, ndim)."""
+        if not self._pos_steps:
+            return np.empty((self.ntemps, self.nwalkers, 0, self.dim))
+        return _stack_cached(self, "pos", self._pos_steps, 2)
+
+    @property
+    def lnlikelihood(self) -> np.ndarray:
+        if not self._ll_steps:
+            return np.empty((self.ntemps, self.nwalkers, 0))
+        return _stack_cached(self, "ll", self._ll_steps, 2)
+
+    @property
+    def lnprobability(self) -> np.ndarray:
+        if not self._lp_steps:
+            return np.empty((self.ntemps, self.nwalkers, 0))
+        return _stack_cached(self, "lp", self._lp_steps, 2)
+
+    @property
+    def flatchain(self) -> np.ndarray:
+        return self.chain.reshape(self.ntemps, -1, self.dim)
+
+    @property
+    def acceptance_fraction(self) -> np.ndarray:
+        return self._naccepted / max(self.iterations, 1)
+
+    @property
+    def tswap_acceptance_fraction(self) -> np.ndarray:
+        """(ntemps,) -- emcee's per-temperature attribution: each adjacent
+        pair's attempts/accepts are credited to both participating rungs."""
+        with np.errstate(invalid="ignore"):
+            return np.where(self._nswap > 0,
+                            self._nswap_accepted / self._nswap, np.nan)
+
+    def thermodynamic_integration_log_evidence(self, fburnin: float = 0.1):
+        """(ln Z, d ln Z) from the stored tempered log-likelihood chain."""
+        ll_stw = self.lnlikelihood.transpose(2, 0, 1)   # -> (S, T, W)
+        return _pt.thermodynamic_integration_log_evidence(
+            ll_stw, self.betas, fburnin=fburnin)
+
+    # -- backends --------------------------------------------------------
+    def _tensor(self, values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.float32),
+                               device=self.device)
+
+    def _logl_batch(self, thetas, generator):
+        return self._logl(thetas)
+
+    def _logp_batch(self, thetas, generator):
+        return self._logp(thetas)
+
+    def _resolve_backend(self, p0):
+        if self._backend_req == "host":
+            self.backend = "host"
+            return
+        flat = self._tensor(p0.reshape(-1, self.dim))
+        try:
+            out = (self._logl(flat), self._logp(flat))
+        except Exception as exc:
+            if self._backend_req == "auto":
+                exc.add_note("backend='auto' calls logl and logp on an "
+                             "(N, D) tensor first; functions of one numpy "
+                             "walker take backend='host'")
+            raise
+        n = flat.shape[0]
+        if all(isinstance(v, torch.Tensor) and tuple(v.shape) == (n,)
+               for v in out):
+            self._step = _pt.make_pt_step(self._logl_batch,
+                                          self._logp_batch, self.betas,
+                                          self.a)
+            self.backend = "torch"
+            return
+        why = (f"they returned {type(out[0]).__name__} and "
+               f"{type(out[1]).__name__}, not (N,) tensors")
+        if self._backend_req == "torch":
+            raise TypeError("backend='torch' needs logl and logp of an "
+                            "(N, D) tensor returning (N,); " + why)
+        warnings.warn("logl/logp do not take a batch of walkers as a "
+                      f"tensor ({why}); using the host (numpy) backend")
+        self.backend = "host"
+
+    def _set_state(self, p0, lnprob0, lnlike0):
+        p0 = np.asarray(p0, np.float64)
+        if lnlike0 is not None:
+            ll = np.asarray(lnlike0, np.float64)
+            if lnprob0 is not None:
+                lp = np.asarray(lnprob0, np.float64) \
+                    - self.betas[:, None] * ll
+            elif self.backend == "host":
+                lp = np.array([[float(self._logp(w)) for w in rung]
+                               for rung in p0])
+            else:
+                lp = self._logp(self._tensor(p0.reshape(-1, self.dim)))
+                lp = lp.double().cpu().numpy().reshape(ll.shape)
+        elif self.backend == "host":
+            ll = np.array([[float(self._logl(w)) for w in rung]
+                           for rung in p0])
+            lp = np.array([[float(self._logp(w)) for w in rung]
+                           for rung in p0])
+        else:
+            ll = lp = None
+        if self.backend == "torch":
+            if self._state is None:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(self._seed)
+                eval_generator = torch.Generator().manual_seed(self._seed)
+                step = 0
+            else:
+                generator, eval_generator, step = (
+                    self._state.generator, self._state.eval_generator,
+                    self._state.step)
+            pos = self._tensor(p0)
+            if ll is None:
+                st = _pt.init_pt_state(pos, self._logl_batch,
+                                       self._logp_batch,
+                                       generator=generator,
+                                       eval_generator=eval_generator)
+                ll_t, lp_t = st.log_like, st.log_prior
+            else:
+                ll_t, lp_t = self._tensor(ll), self._tensor(lp)
+            self._state = _pt.PTState(pos, ll_t, lp_t, generator,
+                                      eval_generator, step)
+        else:
+            self._host_pos = p0.copy()
+            self._host_ll, self._host_lp = ll.copy(), lp.copy()
+
+    def _host_step(self):
+        """Numpy tempered stretch + adjacent replica exchange."""
+        pos, ll, lp = self._host_pos, self._host_ll, self._host_lp
+        n_dim = self.dim
+        acc_all = np.zeros((self.ntemps, self.nwalkers), bool)
+        for t in range(self.ntemps):
+            beta = self.betas[t]
+            # tempered target: logp + beta * logl; track both components
+            n_half = self.nwalkers // 2
+            for parity in (0, 1):
+                active = np.arange(parity, self.nwalkers, 2)
+                passive = np.arange(1 - parity, self.nwalkers, 2)
+                z = ((self.a - 1.0) * self._rng.random(n_half) + 1.0) ** 2 \
+                    / self.a
+                j = self._rng.integers(0, n_half, n_half)
+                partners = pos[t][passive[j]]
+                prop = partners + z[:, None] * (pos[t][active] - partners)
+                ll_prop = np.array([float(self._logl(p)) for p in prop])
+                lp_prop = np.array([float(self._logp(p)) for p in prop])
+                new = lp_prop + beta * ll_prop
+                old = lp[t][active] + beta * ll[t][active]
+                ok = np.log(self._rng.random(n_half)) \
+                    < (n_dim - 1.0) * np.log(z) + new - old
+                idx = active[ok]
+                pos[t][idx] = prop[ok]
+                ll[t][idx] = ll_prop[ok]
+                lp[t][idx] = lp_prop[ok]
+                acc_all[t][active] = ok
+        # replica exchange, coldest pair last (as sampler/pt.py)
+        for i in range(self.ntemps - 2, -1, -1):
+            perm = self._rng.permutation(self.nwalkers)
+            ll_hot = ll[i + 1][perm]
+            log_ratio = (self.betas[i] - self.betas[i + 1]) \
+                * (ll_hot - ll[i])
+            ok = np.log(self._rng.random(self.nwalkers)) < log_ratio
+            sw = perm[ok]
+            (pos[i][ok], pos[i + 1][sw]) = (pos[i + 1][sw].copy(),
+                                            pos[i][ok].copy())
+            (ll[i][ok], ll[i + 1][sw]) = (ll[i + 1][sw].copy(),
+                                          ll[i][ok].copy())
+            (lp[i][ok], lp[i + 1][sw]) = (lp[i + 1][sw].copy(),
+                                          lp[i][ok].copy())
+            self._credit_swaps(i, int(ok.sum()))
+        return acc_all
+
+    def _credit_swaps(self, pair: int, n_accepted) -> None:
+        for rung in (pair, pair + 1):
+            self._nswap[rung] += self.nwalkers
+            self._nswap_accepted[rung] += n_accepted
+
+    def sample(self, p0, lnprob0=None, lnlike0=None, *, iterations: int = 1,
+               thin: int = 1, storechain: bool = True):
+        """Generator yielding (p, lnprob, lnlike) each iteration."""
+        if self.backend is None:
+            self._resolve_backend(np.asarray(p0, np.float64))
+        self._set_state(p0, lnprob0, lnlike0)
+
+        for i in range(int(iterations)):
+            if self.backend == "torch":
+                self._state, acc_t, swaps_t = self._step(self._state)
+                pos = self._state.positions.double().cpu().numpy()
+                ll = self._state.log_like.double().cpu().numpy()
+                lp = self._state.log_prior.double().cpu().numpy()
+                acc = acc_t.cpu().numpy()
+                for r, n_ok in enumerate(swaps_t.cpu().numpy()):
+                    self._credit_swaps(r, float(n_ok))
+            else:
+                acc = self._host_step()
+                pos = self._host_pos.copy()
+                ll = self._host_ll.copy()
+                lp = self._host_lp.copy()
+            self._naccepted += acc
+            self.iterations += 1
+            lnprob = lp + self.betas[:, None] * ll
+            if storechain and i % thin == 0:
+                # emcee 2 stores iterations 0, thin, 2*thin, ... --
+                # ceil(iterations/thin) rows
+                self._pos_steps.append(pos)
+                self._ll_steps.append(ll)
+                self._lp_steps.append(lnprob)
+            yield pos, lnprob, ll

@@ -57,9 +57,16 @@
 //   depths together, so the scheduler has a second dependency chain;
 // - a persistent grid: as many blocks as fit on the card at once, each
 //   owning one contiguous range of the (row, sample) space, equal in
-//   size, so there is no tail wave.  A block flushes its copies into the
-//   row's output with global float atomics when its range leaves a row
-//   or fills a window (the wrapper zeroes the output).
+//   size, so there is no tail wave.  A block flushes its copies when its
+//   range leaves a row or fills a window: each cell's exact sum is added
+//   to an int64 workspace (rows, M, 4, Be) with a 64-bit integer atomic
+//   (two's complement makes the signed sums exact; integer addition does
+//   not depend on order), and a second small kernel then writes the
+//   float32 output once: sum x step in float64, rounded once.  The output
+//   is the same bits on every call, whatever the blocks' order.  Bound:
+//   each per-sample term is at most 2^13 in magnitude and a row has at
+//   most 2^31 samples (the wrapper checks), so a cell stays below 2^44:
+//   no int64 overflow, and exact in float64 before the one rounding.
 // It runs in 8.5 ms at (512, 200k) on an H100 80GB HBM3 (PERF.md), ~85%
 // of the issue rate above; the division's branch and the binning's ~50
 // instructions per (sample, depth) are what is left to cut.
@@ -70,20 +77,18 @@
 // copies (2 x 24 KB at most) in shared memory at a time.  Each block walks
 // its sample range once per tile, in the same launch: it integrates the
 // tile's spans, bins them, flushes the tile's copies into the tile's part
-// of the output and stores every sample's energy at the tile's last depth
-// in a (rows, N) float32 carry buffer, from which the next tile starts.
-// The thread that stores an energy is the thread that loads it again, so
-// no synchronisation is needed, and no RK4 step is done twice; the carry
-// costs 8 bytes per sample and tile.  The fixed point, its window and the
-// flush are those of the one-tile kernel, which is the instance
-// kTiled = false, unchanged: a copy still takes at most 2^17 samples
-// between flushes, each adding at most 2^13 to a cell, so every cell
-// stays below 2^30 at any shape.  At the templates' (128, 200k), M = 100,
-// Be = 150, 4 substeps, it runs in 73.3 ms on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py phase 20a), 73% of its instruction-issue floor's rate.
-// Where three or more blocks flush into one cell, the float atomics of
-// the flush add in no fixed order: the d-channels may then differ in the
-// last bits from call to call (the counts, integers, do not).
+// of the workspace and stores every sample's energy at the tile's last
+// depth in a (rows, N) float32 carry buffer, from which the next tile
+// starts.  The thread that stores an energy is the thread that loads it
+// again, so no synchronisation is needed, and no RK4 step is done twice;
+// the carry costs 8 bytes per sample and tile.  The fixed point, its
+// window and the flush are those of the one-tile kernel, which is the
+// instance kTiled = false: a copy still takes at most 2^17 samples
+// between flushes, each adding at most 2^13 to a cell, so every shared
+// cell stays below 2^30 at any shape.  At the templates' (128, 200k),
+// M = 100, Be = 150, 4 substeps, it runs in 73.3 ms on an H100 80GB HBM3
+// at 700 W (chip_smoke.py phase 20a), 73% of its instruction-issue
+// floor's rate.
 
 #include <cuda_runtime.h>
 
@@ -123,9 +128,9 @@ __device__ __forceinline__ float dedx(float e, const TmParams& c) {
 }
 
 // Add the first n_cells sums of every copy (copies per_copy apart) into
-// the output, scaled back to float, and zero them.
-__device__ void flush(int* hist, float* row_out, int per_copy, int n_cells,
-                      const TmParams& c) {
+// the row's int64 workspace, and zero them.
+__device__ void flush(int* hist, unsigned long long* row_acc, int per_copy,
+                      int n_cells, const TmParams& c) {
   __syncthreads();
   for (int j = threadIdx.x; j < n_cells; j += blockDim.x) {
     long long sum = 0;
@@ -133,18 +138,28 @@ __device__ void flush(int* hist, float* row_out, int per_copy, int n_cells,
       sum += hist[k * per_copy + j];
       hist[k * per_copy + j] = 0;
     }
-    if (sum != 0) {
-      // the scales are powers of two: their reciprocals are exact
-      const int ch = (j / c.n_bins) & 3;
-      const double step = ch == 0   ? 1.0
-                          : ch == 1 ? 1.0 / kTmScaleD1
-                          : ch == 2 ? 1.0 / kTmScaleD2
-                                    : 1.0 / kTmScaleD3;
-      atomicAdd(row_out + j, static_cast<float>(static_cast<double>(sum) *
-                                                step));
-    }
+    if (sum != 0)
+      atomicAdd(row_acc + j, static_cast<unsigned long long>(sum));
   }
   __syncthreads();
+}
+
+// The float32 output from the int64 workspace: sum x step in float64 (the
+// sum is below 2^44, so exact), rounded once.  The steps are powers of
+// two: 1 for the counts, 2^-14, 2^-15, 2^-16 for d, d^2, d^3.
+__global__ void fixed_point_to_float(const long long* __restrict__ acc,
+                                     float* __restrict__ out,
+                                     long long n_cells, int n_bins) {
+  for (long long j = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       j < n_cells; j += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int ch = static_cast<int>((j / n_bins) & 3);
+    const double step = ch == 0   ? 1.0
+                        : ch == 1 ? 1.0 / kTmScaleD1
+                        : ch == 2 ? 1.0 / kTmScaleD2
+                                  : 1.0 / kTmScaleD3;
+    out[j] = static_cast<float>(static_cast<double>(acc[j]) * step);
+  }
 }
 
 // kTiled = false: every span in one tile (n_x <= kTmMaxSpans), carry
@@ -154,7 +169,8 @@ template <bool kTiled>
 __global__ void __launch_bounds__(kTmThreads)
 transport_moments_kernel(const float* __restrict__ e0,
                          const float* __restrict__ steps,
-                         float* __restrict__ out, float* __restrict__ e_out,
+                         unsigned long long* __restrict__ acc,
+                         float* __restrict__ e_out,
                          float* __restrict__ carry, long long n_rows,
                          long long n, TmParams c) {
   extern __shared__ int hist[];
@@ -262,7 +278,7 @@ transport_moments_kernel(const float* __restrict__ e0,
             if (ok[k]) row_carry[base + k * kTmThreads + threadIdx.x] = e[k];
         }
       }
-      flush(hist, out + (row * c.n_x + m0) * per_span, per_copy,
+      flush(hist, acc + (row * c.n_x + m0) * per_span, per_copy,
             (m1 - m0) * per_span, c);
     }
     g = seg_end;
@@ -284,9 +300,9 @@ int tile_spans(int n_x, int n_bins) {
 }
 
 template <bool kTiled>
-int launch(const float* e0, const float* steps, float* out, float* e_out,
-           float* carry, int n_rows, long long n, TmParams c, int device,
-           cudaStream_t stream) {
+int launch(const float* e0, const float* steps, long long* acc, float* out,
+           float* e_out, float* carry, int n_rows, long long n, TmParams c,
+           int device, cudaStream_t stream) {
   const size_t per_copy =
       static_cast<size_t>(c.tile) * 4 * c.n_bins * sizeof(int);
   c.n_copies = std::min(static_cast<int>(kTmSmemLimit / per_copy),
@@ -315,7 +331,17 @@ int launch(const float* e0, const float* steps, float* out, float* e_out,
                (total + per_round - 1) / per_round);
   transport_moments_kernel<kTiled>
       <<<static_cast<int>(blocks), kTmThreads, smem, stream>>>(
-          e0, steps, out, e_out, carry, n_rows, n, c);
+          e0, steps, reinterpret_cast<unsigned long long*>(acc), e_out,
+          carry, n_rows, n, c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_cells =
+      static_cast<long long>(n_rows) * c.n_x * 4 * c.n_bins;
+  const long long conv_blocks =
+      std::min<long long>((n_cells + kTmThreads - 1) / kTmThreads,
+                          static_cast<long long>(n_sms) * 16);
+  fixed_point_to_float<<<static_cast<int>(conv_blocks), kTmThreads, 0,
+                         stream>>>(acc, out, n_cells, c.n_bins);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,20 +356,22 @@ extern "C" int mcmctof_transport_moments_tile(int n_x, int n_bins) {
 }
 
 // steps: device float32 (3, n_x) = (h, h/2, h/6) per x interval.
-// out must be zeroed by the caller.  carry: float32 (n_rows, n) scratch,
-// needed (non-null) when mcmctof_transport_moments_tile(n_x, n_bins) <
-// n_x, else unused.
+// acc: int64 (n_rows, n_x, 4, n_bins) workspace, zeroed by the caller;
+// out: float32 of the same shape, every cell written.  carry: float32
+// (n_rows, n) scratch, needed (non-null) when
+// mcmctof_transport_moments_tile(n_x, n_bins) < n_x, else unused.  n must
+// be below 2^31 (the bound of the int64 sums).
 extern "C" int mcmctof_transport_moments(
-    const float* e0, const float* steps, float* out, float* e_out,
-    float* carry, int n_rows, long long n, int n_x, int n_sub, int n_bins,
-    float a, float p, float q, float floor_e, float lo, float hi,
+    const float* e0, const float* steps, long long* acc, float* out,
+    float* e_out, float* carry, int n_rows, long long n, int n_x, int n_sub,
+    int n_bins, float a, float p, float q, float floor_e, float lo, float hi,
     float inv_width, int device, void* stream) {
   mcmctof::DeviceGuard guard(device);
   cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tile = n_x < 1 || n_bins < 1 || n_sub < 1
                        ? 0 : mcmctof::tile_spans(n_x, n_bins);
-  if (tile < 1 || (tile < n_x && carry == nullptr))
+  if (tile < 1 || (tile < n_x && carry == nullptr) || n >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(n_rows) * n;
   if (total <= 0) return static_cast<int>(cudaGetLastError());
@@ -351,8 +379,8 @@ extern "C" int mcmctof_transport_moments(
                       n_x, n_sub, n_bins, 0, tile};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == n_x)
-    return mcmctof::launch<false>(e0, steps, out, e_out, nullptr, n_rows, n,
-                                  c, device, s);
-  return mcmctof::launch<true>(e0, steps, out, e_out, carry, n_rows, n, c,
-                               device, s);
+    return mcmctof::launch<false>(e0, steps, acc, out, e_out, nullptr,
+                                  n_rows, n, c, device, s);
+  return mcmctof::launch<true>(e0, steps, acc, out, e_out, carry, n_rows, n,
+                               c, device, s);
 }

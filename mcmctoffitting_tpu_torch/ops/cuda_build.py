@@ -69,9 +69,9 @@ _SIGNATURES = {
     # n_rows, n_valid, n_bins, device, blocks (out)
     "mcmctof_weighted_hist_blocks": [_I, _L, _I, _I,
                                      ctypes.POINTER(ctypes.c_longlong)],
-    # e0, steps, out, e_out, carry, n_rows, n, n_x, n_sub, n_bins, a, p,
-    # q, floor, lo, hi, inv_width, device, stream
-    "mcmctof_transport_moments": [_P] * 5 + [_I, _L, _I, _I, _I]
+    # e0, steps, acc (int64 workspace), out, e_out, carry, n_rows, n, n_x,
+    # n_sub, n_bins, a, p, q, floor, lo, hi, inv_width, device, stream
+    "mcmctof_transport_moments": [_P] * 6 + [_I, _L, _I, _I, _I]
     + [_F] * 7 + [_I, _P],
     # n_x, n_bins -> spans per tile (n_x: one tile; 0: refused)
     "mcmctof_transport_moments_tile": [_I, _I],

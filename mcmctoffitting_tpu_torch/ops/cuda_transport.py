@@ -22,6 +22,9 @@ _PLAIN_CHUNK = 1 << 24     # (rows x M x samples) elements per plain chunk
 # steps of the kernel's fixed-point d, d^2, d^3 sums (its counts are
 # integers; csrc/transport_moments.cu)
 KERNEL_STEPS = (2.0 ** -14, 2.0 ** -15, 2.0 ** -16)
+# samples per row the kernel takes: each sample adds at most 2^13 to an
+# int64 cell, so a cell stays below 2^44 (exact in float64)
+KERNEL_MAX_SAMPLES = 1 << 31
 # bounds of the channels (1, d, d^2, d^3), |d| <= 1/2
 MOMENT_BOUNDS = (1.0, 0.5, 0.25, 0.125)
 
@@ -62,8 +65,8 @@ def moment_check(moments: torch.Tensor, e: torch.Tensor,
     against the float64 sums of the channels of the energies ``e``
     (R, M, N) it binned, channel by channel.  The kernel counts exactly
     and rounds each d, d^2, d^3 to a multiple of its fixed-point step
-    (half a step per sample) before its flushed partial sums are rounded
-    to float32: the tolerance of a d-channel is one step per sample plus
+    (half a step per sample) before its exact int64 sum is rounded to
+    float32 once: the tolerance of a d-channel is one step per sample plus
     2^-20 of the sum of the channel's magnitudes.  Returns (counts equal,
     the worst d-channel error over its tolerance)."""
     n_rows, n_x, _ = e.shape
@@ -82,6 +85,16 @@ def moment_check(moments: torch.Tensor, e: torch.Tensor,
     tol = sums[:, :, :1] * steps[:, None] + 2.0 ** -20 * mags[:, :, 1:]
     err = (moments[:, :, 1:].double() - sums[:, :, 1:]).abs()
     return counts_equal, (err / tol.clamp_min(1e-300)).max().item()
+
+
+def kernel_sums_to_moments(sums: torch.Tensor) -> torch.Tensor:
+    """The kernel's last step, on the int64 fixed-point sums (..., 4,
+    n_bins) of its workspace: each sum times its channel's step (1, then
+    ``KERNEL_STEPS``) in float64, rounded to float32 once, as
+    ``fixed_point_to_float`` in ``csrc/transport_moments.cu`` does."""
+    steps = torch.tensor((1.0, *KERNEL_STEPS), dtype=torch.float64,
+                         device=sums.device)
+    return (sums.double() * steps[:, None]).float()
 
 
 def energy_moments(transport, e0: torch.Tensor, n_x: int,
@@ -143,6 +156,10 @@ def transport_moments(e0: torch.Tensor, c: RK4Constants, bins: MomentBins,
     templates' M = 100 x Be = 150), the kernel takes the depths in tiles
     (:func:`tile_spans`) and carries the energies between them in an
     (R, N) float32 buffer allocated here; a shape it cannot take raises.
+    The blocks add their exact fixed-point sums into an int64 workspace
+    (R, M, 4, n_bins), allocated and zeroed here, which the kernel's second
+    pass rounds to float32 once (:func:`kernel_sums_to_moments`): the
+    output is the same bits on every call.
     """
     if e0.dtype != torch.float32 or e0.dim() != 2:
         raise TypeError("transport_moments: expects (R, N) float32 energies")
@@ -158,21 +175,29 @@ def transport_moments(e0: torch.Tensor, c: RK4Constants, bins: MomentBins,
         raise ValueError("transport_moments: e0 must be contiguous")
     n_rows, n = e0.shape
     n_x = len(c.h)
-    out = torch.zeros((n_rows, n_x, 4, bins.n_bins), dtype=torch.float32,
-                      device=e0.device)
+    shape = (n_rows, n_x, 4, bins.n_bins)
     e_out = (torch.empty((n_rows, n_x, n), dtype=torch.float32,
                          device=e0.device) if energies_out else None)
     tile = tile_spans(n_x, bins.n_bins)
     if tile < 1:
         raise ValueError(f"transport_moments: the CUDA kernel cannot take "
                          f"{n_x} depths x {bins.n_bins} bins")
-    if n_rows and n:
+    if n >= KERNEL_MAX_SAMPLES:
+        raise ValueError(f"transport_moments: {n} samples per row, the "
+                         f"kernel's int64 sums take fewer than 2^31")
+    if not (n_rows and n):
+        out = torch.zeros(shape, dtype=torch.float32, device=e0.device)
+    else:
         lib = load_library().lib
         stream = torch.cuda.current_stream(e0.device).cuda_stream
         steps = _steps_tensor(c, e0.device)
         carry = torch.empty_like(e0) if tile < n_x else None
+        # the blocks' exact sums meet in this int64 workspace; the kernel's
+        # second pass writes every cell of out from it
+        acc = torch.zeros(shape, dtype=torch.int64, device=e0.device)
+        out = torch.empty(shape, dtype=torch.float32, device=e0.device)
         check(lib.mcmctof_transport_moments(
-            e0.data_ptr(), steps.data_ptr(), out.data_ptr(),
+            e0.data_ptr(), steps.data_ptr(), acc.data_ptr(), out.data_ptr(),
             e_out.data_ptr() if e_out is not None else None,
             None if carry is None else carry.data_ptr(), n_rows, n,
             n_x, c.n_substeps, bins.n_bins, c.a, c.p, c.q, c.energy_floor,

@@ -129,18 +129,20 @@ def launch_floor_ms(device: torch.device, **kw) -> float:
     return graph_ms(lambda: empty_launch(device), **kw)
 
 
-def profiler_kernel_ms(fn, name_part: str, calls: int = 50) -> float:
-    """Mean duration (ms) of the device kernels whose name contains
-    ``name_part`` over ``calls`` eager calls of ``fn``, as torch.profiler
-    reports them; NaN if it saw none."""
+def _profiled(fn, calls: int, name_part: str = ""):
+    """torch.profiler over ``calls`` eager calls of ``fn`` (after one
+    untimed call): (device us of the kernels whose name contains
+    ``name_part``, their count, host ms per call in the window)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / calls
     total_us, count = 0.0, 0
     for evt in prof.key_averages():
         d_us = getattr(evt, "self_device_time_total", None)
@@ -149,4 +151,21 @@ def profiler_kernel_ms(fn, name_part: str, calls: int = 50) -> float:
         if d_us and evt.device_type.name == "CUDA" and name_part in evt.key:
             total_us += d_us
             count += evt.count
+    return total_us, count, host_ms
+
+
+def profiler_kernel_ms(fn, name_part: str, calls: int = 50) -> float:
+    """Mean duration (ms) of the device kernels whose name contains
+    ``name_part`` over ``calls`` eager calls of ``fn``, as torch.profiler
+    reports them; NaN if it saw none."""
+    total_us, count, _ = _profiled(fn, calls, name_part)
     return total_us / 1e3 / count if count else float("nan")
+
+
+def profiler_call_ms(fn, calls: int = 3) -> tuple:
+    """(device ms, host ms) per call of ``fn``: every kernel's duration
+    that torch.profiler reports over ``calls`` eager calls, summed (NaN if
+    it saw none), and the wall clock of the same window.  The profiler
+    slows the host, so the host ms is an upper bound."""
+    total_us, count, host_ms = _profiled(fn, calls)
+    return (total_us / 1e3 / calls if count else float("nan")), host_ms

@@ -9,8 +9,12 @@ against the JAX package's, on a Gaussian target on the CPU.
 * In distribution: the chains' means and variances agree with the
   analytic posterior and with the JAX shim's, on both backends.
 * Differences by design: ``backend='jax'`` raises a ``ValueError`` that
-  names 'torch'; ``PTSampler`` raises ``not_ported`` (the
-  parallel-tempering slice).
+  names 'torch'.
+* ``PTSampler``: the reference's sample -> reset -> sample pattern on both
+  backends (torch: batched (N, D) tensor functions; host: numpy functions
+  of one walker) gives the JAX shim's shapes and the analytic cold
+  posterior; its thermodynamic-integration ln Z matches the analytic
+  evidence; 'auto' lets a log-likelihood's exception through.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -201,6 +205,157 @@ def test_auto_lets_the_probe_s_errors_reach_the_caller():
     assert s.backend == "host" and np.all(np.isfinite(lp))
 
 
-def test_pt_sampler_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="parallel-tempering slice"):
-        temcee.PTSampler(4, 8, D, _lnpost_torch, _lnpost_torch)
+S_PRIOR, PT_SIG = 3.0, 1.0
+POST_STD = (1.0 / S_PRIOR ** 2 + 1.0 / PT_SIG ** 2) ** -0.5
+
+
+def _logl_torch(p, sig=PT_SIG):
+    return (-0.5 * torch.sum((p / sig) ** 2, dim=-1)
+            - 0.5 * D * np.log(2 * np.pi * sig ** 2))
+
+
+def _logprior_torch(p):
+    return (-0.5 * torch.sum((p / S_PRIOR) ** 2, dim=-1)
+            - 0.5 * D * np.log(2 * np.pi * S_PRIOR ** 2))
+
+
+def _logl_host(p, sig=PT_SIG):
+    # float() of one walker's value: the host backend
+    return float(-0.5 * np.sum((np.asarray(p) / sig) ** 2)
+                 - 0.5 * D * np.log(2 * np.pi * sig ** 2))
+
+
+def _logprior_host(p):
+    return float(-0.5 * np.sum((np.asarray(p) / S_PRIOR) ** 2)
+                 - 0.5 * D * np.log(2 * np.pi * S_PRIOR ** 2))
+
+
+def _logl_jax(p, sig=PT_SIG):
+    return (-0.5 * jnp.sum((p / sig) ** 2)
+            - 0.5 * D * jnp.log(2 * jnp.pi * sig ** 2))
+
+
+def _logprior_jax(p):
+    return (-0.5 * jnp.sum((p / S_PRIOR) ** 2)
+            - 0.5 * D * jnp.log(2 * jnp.pi * S_PRIOR ** 2))
+
+
+def _pt_pattern(pt, iters):
+    """The reference's PTSampler use: burn-in loop, reset, resume with
+    lnprob0 and lnlike0, thin=2; returns the shapes it saw."""
+    ntemps, nwalkers = pt.ntemps, pt.nwalkers
+    p0 = 1e-3 * np.random.default_rng(2).standard_normal(
+        (ntemps, nwalkers, D))
+    n_burn, n_main = iters
+    for p, lnp, lnl in pt.sample(p0, iterations=n_burn):
+        pass
+    shapes = {"p": p.shape, "lnp": lnp.shape, "lnl": lnl.shape}
+    pt.reset()
+    for p, lnp, lnl in pt.sample(p, lnprob0=lnp, lnlike0=lnl,
+                                 iterations=n_main, thin=2):
+        pass
+    shapes.update(chain=pt.chain.shape, lnlikelihood=pt.lnlikelihood.shape,
+                  lnprobability=pt.lnprobability.shape,
+                  flatchain=pt.flatchain.shape,
+                  acceptance_fraction=pt.acceptance_fraction.shape,
+                  tswap=pt.tswap_acceptance_fraction.shape)
+    return shapes
+
+
+@pytest.mark.parametrize("backend, iters", [("torch", (60, 400)),
+                                            ("host", (30, 150))])
+def test_pt_sampler_reference_pattern(backend, iters):
+    """tests/test_compat_emcee.py::test_pt_sampler_reference_pattern on the
+    port's two backends: the JAX shim's shapes, emcee 2's thinning rule,
+    the analytic cold posterior, swaps on every rung."""
+    ntemps, nwalkers = 8, 16
+    logl, logp = ((_logl_torch, _logprior_torch) if backend == "torch"
+                  else (_logl_host, _logprior_host))
+    pt = temcee.PTSampler(ntemps, nwalkers, D, logl, logp, threads=10,
+                          loglkwargs={"sig": PT_SIG}, seed=3, device="cpu")
+    if backend == "host":
+        with pytest.warns(UserWarning, match="host"):
+            got = _pt_pattern(pt, iters)
+    else:
+        got = _pt_pattern(pt, iters)
+    assert pt.backend == backend
+    n_main = iters[1]
+    assert got["p"] == (ntemps, nwalkers, D)
+    assert got["lnp"] == got["lnl"] == (ntemps, nwalkers)
+    # emcee 2 stores iterations 0, thin, 2*thin, ... -> ceil(N/thin) rows
+    assert got["chain"] == (ntemps, nwalkers, -(-n_main // 2), D)
+    assert got["lnlikelihood"] == got["lnprobability"] == (
+        ntemps, nwalkers, -(-n_main // 2))
+    assert pt.chain.dtype == pt.lnlikelihood.dtype == np.float64
+    zero_temp = pt.chain[0].reshape(-1, D)   # the reference's slicing
+    assert np.all(np.abs(zero_temp.mean(axis=0)) < 0.25)
+    assert np.all(np.abs(zero_temp.std(axis=0) - POST_STD) < 0.25)
+    tswap = pt.tswap_acceptance_fraction
+    assert tswap.shape == (ntemps,)
+    assert np.all(tswap > 0.05) and np.all(tswap <= 1.0)
+    # lnprobability is the tempered posterior, logp + beta logl
+    np.testing.assert_allclose(
+        pt.lnprobability[..., -1],
+        np.array([[_logprior_host(w) for w in rung]
+                  for rung in pt.chain[..., -1, :]])
+        + pt.betas[:, None] * pt.lnlikelihood[..., -1], rtol=1e-5)
+
+
+def test_pt_sampler_shapes_match_the_jax_shim():
+    """The same calls on the port's torch backend and the JAX shim's jax
+    backend give the same attribute shapes."""
+    port = temcee.PTSampler(4, 8, D, _logl_torch, _logprior_torch, seed=1,
+                            device="cpu")
+    jshim = jemcee.PTSampler(4, 8, D, _logl_jax, _logprior_jax, seed=1)
+    assert _pt_pattern(port, (3, 5)) == _pt_pattern(jshim, (3, 5))
+    assert port.iterations == jshim.iterations == 5
+
+
+def test_pt_ti_evidence_via_shim():
+    ntemps, nwalkers = 16, 32
+    pt = temcee.PTSampler(ntemps, nwalkers, D, _logl_torch, _logprior_torch,
+                          seed=5, device="cpu")
+    p0 = np.random.default_rng(4).standard_normal(
+        (ntemps, nwalkers, D)) * S_PRIOR
+    for _ in pt.sample(p0, iterations=500):
+        pass
+    ln_z, d_ln_z = pt.thermodynamic_integration_log_evidence(fburnin=0.3)
+    lnz_true = D * (-0.5 * np.log(2 * np.pi * (PT_SIG ** 2 + S_PRIOR ** 2)))
+    assert abs(ln_z - lnz_true) < 0.2
+    assert 0.0 < d_ln_z < 0.5
+
+
+def test_pt_auto_lets_the_probe_s_errors_reach_the_caller(monkeypatch):
+    """'auto' swallows nothing: a log-likelihood that raises on the batch
+    of walkers (as a device launch that fails would) raises to the caller
+    with a note that names backend='host', and no backend is chosen.  The
+    refusals: an unknown backend, odd walkers, a wrong ladder, and the
+    default device without a GPU."""
+    class LaunchFailed(RuntimeError):
+        pass
+
+    def failing(p):
+        raise LaunchFailed("CUDA error: launch failed")
+
+    pt = temcee.PTSampler(3, 8, D, failing, _logprior_torch, device="cpu")
+    with pytest.raises(LaunchFailed) as info:
+        next(iter(pt.sample(np.zeros((3, 8, D)), iterations=1)))
+    assert any("backend='host'" in note for note in info.value.__notes__)
+    assert pt.backend is None
+    pt = temcee.PTSampler(3, 8, D, _logl_host, _logprior_host,
+                          backend="torch", device="cpu")
+    with pytest.raises(TypeError, match=r"\(N, D\) tensor"):
+        next(iter(pt.sample(np.zeros((3, 8, D)), iterations=1)))
+    with pytest.raises(ValueError, match="auto\|torch\|host"):
+        temcee.PTSampler(3, 8, D, _logl_torch, _logprior_torch,
+                         backend="jax")
+    with pytest.raises(ValueError, match="even"):
+        temcee.PTSampler(3, 7, D, _logl_torch, _logprior_torch,
+                         device="cpu")
+    with pytest.raises(ValueError, match="ntemps"):
+        temcee.PTSampler(3, 8, D, _logl_torch, _logprior_torch,
+                         betas=[1.0, 0.5], device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    temcee.PTSampler(3, 8, D, _logl_host, _logprior_host, backend="host")
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        temcee.PTSampler(3, 8, D, _logl_torch, _logprior_torch)

@@ -52,15 +52,17 @@ NEW_MODULES = ("cli._driver", "cli._entry", "cli.simult_fit",
                "utils.plotting", "cli.plot_chain", "utils.profiling",
                "compat", "compat.emcee", "models.simple", "models.templates",
                "models.csi2016", "models.fixed_params", "cli.simple_tof",
-               "cli.template_fit")
+               "cli.template_fit", "sampler.pt", "models.shifting_gaussian",
+               "cli.shifting_gaussian")
 
 
 def test_every_module_is_among_those_imported():
     """The walk above reaches the drivers, chain I/O, diagnostics, the
     native codec's bindings (which build nothing at import), the gradient
-    samplers, the optimisers, and the post-processing modules (PPC,
-    plotting, which imports no matplotlib until it draws, plot_chain,
-    profiling, the emcee shim)."""
+    samplers, the optimisers, the post-processing modules (PPC, plotting,
+    which imports no matplotlib until it draws, plot_chain, profiling, the
+    emcee shim), and parallel tempering with its shifting-Gaussian
+    study."""
     import pkgutil
 
     import mcmctoffitting_tpu_torch as pkg
@@ -183,8 +185,42 @@ def test_remaining_model_clis_run_without_jax_or_matplotlib(tmp_path):
             "ppc_run1_bands.txt"} <= set(os.listdir(tmp_path))
 
 
+_RUN_PT = """
+import sys
+for blocked in ('jax', 'triton', 'mcmctoffitting_tpu', 'matplotlib'):
+    sys.modules[blocked] = None
+from mcmctoffitting_tpu_torch.cli import shifting_gaussian
+from mcmctoffitting_tpu_torch.models import simult
+default_spec = simult.default_spec
+simult.default_spec = lambda n_samples, **kw: default_spec(8000, **kw)
+shifting_gaussian.main(['--debug', '-device', 'cpu', '-nSamples', '100'])
+shifting_gaussian.main(['-model', 'tof', '-device', 'cpu', '-nTemps', '2',
+                        '-ptWalkers', '4', '-ptBurnin', '1', '-ptSteps', '2',
+                        '-thin', '1'])
+loaded = [m for m, mod in sys.modules.items() if mod is not None
+          and m.split('.')[0] in ('jax', 'jaxlib', 'triton',
+                                  'mcmctoffitting_tpu', 'matplotlib')]
+assert not loaded, loaded
+"""
+
+
+def test_shifting_gaussian_cli_runs_without_jax_or_matplotlib(tmp_path):
+    """cli.shifting_gaussian, both branches, with jax, the JAX package and
+    matplotlib blocked, at tiny sizes on the CPU (8k draws for -model
+    tof): its lines and files."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _RUN_PT], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert '{"pt_cold_medians"' in proc.stdout
+    assert "cold-chain beamE 95% span" in proc.stdout
+    assert {"sg_chain.dat", "sg_pt_coldchain.dat"} <= set(
+        os.listdir(tmp_path))
+
+
 def test_console_scripts_do_not_collide():
-    """pyproject names the port's six scripts beside the JAX package's."""
+    """pyproject names the port's seven scripts beside the JAX package's."""
     import tomllib
     scripts = tomllib.loads((REPO / "pyproject.toml").read_text())[
         "project"]["scripts"]
@@ -193,13 +229,14 @@ def test_console_scripts_do_not_collide():
                "mcmctof-torch-ppc": "ppc",
                "mcmctof-torch-plot-chain": "plot_chain",
                "mcmctof-torch-simple-tof": "simple_tof",
-               "mcmctof-torch-template-fit": "template_fit"}
+               "mcmctof-torch-template-fit": "template_fit",
+               "mcmctof-torch-shifting-gaussian": "shifting_gaussian"}
     from mcmctoffitting_tpu_torch.cli import _entry
     for script, fn in entries.items():
         assert scripts[script] == \
             f"mcmctoffitting_tpu_torch.cli._entry:{fn}"
         assert callable(getattr(_entry, fn))
-    assert len(set(scripts)) == len(scripts) == 13
+    assert len(set(scripts)) == len(scripts) == 14
 
 
 def test_kernel_modules_import_without_nvcc():

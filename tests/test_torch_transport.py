@@ -347,3 +347,46 @@ def test_moment_check_finds_a_wrong_channel(fault):
         moments, tstopping.rk4_transport(c, e0), bins)
     assert counts_equal == (fault != "count_off_by_one")
     assert (ratio <= 1.0) == (fault in (None, "count_off_by_one"))
+
+
+def _kernel_int64_sums(e, bins):
+    """K4's int64 workspace for energies ``e`` (R, M, N), emulated on the
+    CPU: the count, and d, d^2, d^3 each rounded to the nearest multiple of
+    its step (ties to even, as ``__float2int_rn``), summed exactly."""
+    n_rows, n_x, _ = e.shape
+    idx, chans = cuda_transport.moment_channels(e, bins)
+    scales = torch.tensor([1.0] + [1.0 / s for s in
+                                   cuda_transport.KERNEL_STEPS])
+    terms = torch.round(chans * scales).long()              # (R, M, N, 4)
+    cells = torch.arange(4) * bins.n_bins + idx[..., None]
+    sums = torch.zeros((n_rows, n_x, 4 * bins.n_bins), dtype=torch.int64)
+    sums.scatter_add_(-1, cells.reshape(n_rows, n_x, -1),
+                      terms.reshape(n_rows, n_x, -1))
+    return sums.reshape(n_rows, n_x, 4, bins.n_bins)
+
+
+def test_kernel_sums_to_moments_meets_moment_check():
+    """K4's last step, the int64 sums times each channel's step in float64
+    rounded to float32 once: on the sums the kernel forms, the result meets
+    ``moment_check`` (counts exact, d-channels within their steps) and
+    agrees with the plain version; at the bound of a cell (2^31 samples
+    each adding 2^13) the conversion is one rounding of the exact value."""
+    c, bins = _rk4(), cuda_transport.MomentBins(ED_LO, ED_HI, ED_N)
+    e0 = torch.as_tensor(_e0((3, 20_000), 9))
+    e = tstopping.rk4_transport(c, e0)
+    got = cuda_transport.kernel_sums_to_moments(_kernel_int64_sums(e, bins))
+    assert got.dtype == torch.float32
+    counts_equal, ratio = cuda_transport.moment_check(got, e, bins)
+    assert counts_equal and ratio <= 1.0
+    want = cuda_transport.transport_moments_plain(e0, c, bins)
+    total = want[:, :, 0].sum(dim=(-2, -1))[:, None, None, None]
+    assert torch.all((got - want).abs() <= 1e-5 * total)
+    # the extremes: 2^44 is the largest magnitude 2^31 samples can reach
+    big = np.array([2 ** 44, -(2 ** 44), 2 ** 44 - 1, 3, -1, 0],
+                   np.int64)
+    sums = torch.as_tensor(np.tile(big[:, None, None], (1, 4, 1)))
+    steps = np.array([1.0, *cuda_transport.KERNEL_STEPS])
+    exact = (big.astype(np.float64)[:, None] * steps).astype(np.float32)
+    np.testing.assert_array_equal(
+        cuda_transport.kernel_sums_to_moments(sums)[..., 0].numpy(), exact)
+    assert cuda_transport.KERNEL_MAX_SAMPLES * 2 ** 13 == 2 ** 44
