@@ -165,6 +165,23 @@ Then parallel tempering (before phase 11 too):
      lattice) against their plain versions, with times and bounds; (d)
      compat.emcee.PTSampler with a torch log-likelihood on the card,
      sample -> reset -> sample: chain (T, W, S, D), lnlikelihood (T, W, S).
+Then walker sharding over torch.distributed ranks (before phase 22):
+ 23. (a) K1 with a counter offset on the slice's (256) x 4 x 514 rates:
+     rows [128, 256) drawn alone with offset 128 x 4 x 514 equal the full
+     launch's (torch.equal), offset 0 the launch without one, a shard of
+     every rung (blocks) its rows; the kernel against its plain version at
+     the offset; device ms with offset 0 and with an offset; (b) a
+     one-rank NCCL group at full width: make_sharded_logp_batch equals the
+     plain evaluator bit for bit on 256 and 128 walkers; (c) two gloo
+     ranks sharing cuda:0 (parallel/launch.py), 20 DE steps of the
+     full-width counts fit: contract A against one process (positions rtol
+     2e-5, log-probs rtol 2e-4; whether bitwise is printed), contract C,
+     K1 and K2 once per evaluation on each rank's shard, walker-steps/s
+     (not a scaling figure); (d) make_sharded_pt_batch over the two ranks,
+     -model tof (20 x 100 walkers, 2 runs, 50k draws, 5 steps) against the
+     unsharded sample_pt, contract A; (e) cli.simult_fit -mesh 2 on a
+     one-GPU host: capped to one GPU, says so, and writes the -mesh 1
+     chain byte for byte.
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
@@ -184,7 +201,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mcmctoffitting_tpu_torch import sampler
+from mcmctoffitting_tpu_torch import parallel, sampler
 from mcmctoffitting_tpu_torch.cli import _driver as cli_driver
 from mcmctoffitting_tpu_torch.cli import csi_onebd as cli_onebd
 from mcmctoffitting_tpu_torch.cli import plot_chain as cli_plot_chain
@@ -206,6 +223,9 @@ from mcmctoffitting_tpu_torch.ops.cuda_poisson import philox_cuda, poisson
 from mcmctoffitting_tpu_torch.ops.cuda_tof import (
     tof_hist_segments, tof_hist_segments_backward, tof_hist_segments_bwd_plain,
     tof_hist_segments_plain)
+from mcmctoffitting_tpu_torch.parallel import distributed as parallel_dist
+from mcmctoffitting_tpu_torch.parallel import launch as parallel_launch
+from mcmctoffitting_tpu_torch.parallel import mesh as parallel_mesh
 from mcmctoffitting_tpu_torch.utils import chain_io, data_io, devtime
 from mcmctoffitting_tpu_torch.utils import ppc as ppc_mod
 
@@ -2014,6 +2034,262 @@ def phase_csi2016(dev, smi, tmp, rate, launches):
             "k4": k4}
 
 
+# --- phase 23: walker sharding over torch.distributed ranks ---------------
+
+SHARD_STEPS = 20                     # 23c: DE steps of the two-rank fit
+SHARD_PT_STEPS = 5                   # 23d: PT steps of -model tof
+SHARD_RANKS = 2
+SHARD_DEADLINE_S = 600.0
+# contract A on the card: tests/test_sharding.py's tolerances
+POS_RTOL, LP_RTOL = 2e-5, 2e-4
+
+
+def shard_setup(dev):
+    """23b-c: the slice at full width (simultFit counts, 4 runs, 200k
+    draws, corrected likelihood): problem, log-prob, initial walkers."""
+    spec = simult.default_spec(n_samples=N_DRAWS, sampling="counts")
+    prob = simult.SimultFitProblem(spec, n_runs=N_RUNS, likelihood="poisson",
+                                   device=dev)
+    truth = np.concatenate([simult.GUESS_SHARED, np.full(N_RUNS, 5.0e4)])
+    obs = data_io.synthesize_observed(9, prob, truth)
+    p0 = prob.initial_walkers_from_observed(
+        torch.Generator(dev).manual_seed(1), N_WALKERS, obs)
+    return prob, prob.make_log_prob_fn(obs), p0
+
+
+def shard_fit(logp, p0, dev):
+    """23c: SHARD_STEPS DE steps from p0 with fixed seeds; returns the
+    initial log-probs, the chain (positions, log-probs), its final state
+    and the walker-steps/s of the steps (host clock, synchronised)."""
+    state = sampler.init_state(p0, logp,
+                               generator=torch.Generator(dev).manual_seed(2),
+                               eval_generator=torch.Generator()
+                               .manual_seed(3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain = sampler.run_mcmc(state, SHARD_STEPS, logp, move="de")
+    torch.cuda.synchronize()
+    rate = SHARD_STEPS * N_WALKERS / (time.perf_counter() - t0)
+    return state.log_probs, chain, rate
+
+
+def shard_pt(loglike, logprior, p0, dev, loglike_batch=None):
+    """23d: SHARD_PT_STEPS tempered steps of -model tof from p0."""
+    chain = sampler.sample_pt(
+        p0, SHARD_PT_STEPS, loglike, logprior, stochastic=True,
+        generator=torch.Generator(dev).manual_seed(4),
+        eval_generator=torch.Generator().manual_seed(5),
+        loglike_batch=loglike_batch)
+    return chain.positions, chain.log_like, chain.log_prior
+
+
+def shard_rank():
+    """One of two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one
+    GPU): 23c, the sharded full-width fit with K1 and K2 counted on this
+    rank's shard, the log-probs of a half-ensemble and contract C; 23d,
+    sharded PT."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = parallel.make_mesh(dev)
+    prob, logp, p0 = shard_setup(dev)
+    sharded = parallel.make_sharded_logp_batch(logp, mesh,
+                                               by_row=prob.draws_by_row)
+    half = sharded(p0[::2].contiguous(), torch.Generator().manual_seed(6))
+    reset_counts()
+    lp0, chain, rate = shard_fit(sharded, p0, dev)
+    torch.cuda.synchronize()
+    used = read_counts()
+    # contract C: every rank holds the same positions
+    every = parallel_mesh.all_gather_rows(chain.state.positions[None], mesh)
+    same = all(torch.equal(every[0], p) for p in every[1:])
+    out = {"rank": mesh.rank, "half_log_probs": half.cpu(),
+           "initial_log_probs": lp0.cpu(), "positions": chain.positions.cpu(),
+           "log_probs": chain.log_probs.cpu(), "same_on_ranks": same,
+           "launches": used, "rate": rate,
+           "evaluations": 2 * SHARD_STEPS + 1}
+    del prob, logp, sharded, chain
+    torch.cuda.empty_cache()
+    _, _, loglike, logprior, p_pt = cli_sg.tof_pt_setup(0, PT_T, PT_W, dev)
+    batch = parallel.make_sharded_pt_batch(loglike, mesh, n_temps=PT_T,
+                                           by_row=True)
+    out["pt"] = [t.cpu() for t in shard_pt(loglike, logprior, p_pt, dev,
+                                           batch)]
+    return out
+
+
+def contract_a(got, want, rtol, label):
+    """Contract A on the card: the same non-finite entries, the finite ones
+    within ``rtol``; returns (bitwise, max |d|)."""
+    got, want = got.double(), want.double()
+    fin = torch.isfinite(want)
+    require(torch.equal(fin, torch.isfinite(got))
+            and torch.equal(got[~fin], want[~fin]),
+            f"{label}: the same non-finite entries")
+    d = (got[fin] - want[fin]).abs()
+    require(bool(torch.all(d <= rtol * want[fin].abs())),
+            f"{label}: within rtol {rtol} (max |d| {d.max().item():g})")
+    return bool(torch.equal(got, want)), d.max().item() if d.numel() else 0.0
+
+
+def phase_sharding_k1(dev, smi, rates_w, k1_phase6_ms):
+    """23a: K1 with a counter offset at the slice's (256) x 4 x 514 rates:
+    the second half alone with offset 128 x 4 x 514 equals the second half
+    of the full launch; offset 0 is the launch without one; a shard of
+    every rung with blocks; the kernel against its plain version at an
+    offset; device times with offset 0 and with an offset, in turns."""
+    w, c = rates_w.shape
+    half, per = w // 2, N_RUNS * c
+    full = poisson(rates_w, (7, 8), n_runs=N_RUNS)
+    second = poisson(rates_w[half:].contiguous(), (7, 8), n_runs=N_RUNS,
+                     offset=half * per)
+    require(torch.equal(second, full[half:]),
+            "23a: the second half alone, offset by the first, == the second "
+            "half of the full launch")
+    require(torch.equal(poisson(rates_w, (7, 8), n_runs=N_RUNS, offset=0),
+                        full), "23a: offset 0 == the launch without one")
+    words = torch.tensor([7, 8], dtype=torch.int64, device=dev)
+    require(torch.equal(poisson(rates_w[half:].contiguous(), words,
+                                n_runs=N_RUNS, offset=half * per),
+                        full[half:]), "23a: offset with the seed tensor")
+    t, n, m = 8, w // 8, w // 16        # rank 1's half of every rung
+    rows = rates_w.reshape(t, n, c)[:, m:].reshape(t * m, c).contiguous()
+    blocked = poisson(rows, (7, 8), n_runs=N_RUNS, offset=m * per,
+                      blocks=(m * per, n * per))
+    require(torch.equal(blocked.reshape(t, m, N_RUNS, c),
+                        full.reshape(t, n, N_RUNS, c)[:, m:]),
+            "23a: a shard of every rung (blocks) == its rows of the launch")
+    lam = rates_w[half:, None].expand(-1, N_RUNS, -1).contiguous()
+    plain = plain_poisson.poisson_ptrs(lam, (7, 8), offset=half * per)
+    same = (second == plain).double().mean().item()
+    err = (second - plain).abs().max().item()
+    zk, zp = poisson_z(second, lam), poisson_z(plain, lam)
+    require(same >= 0.999 and max(map(abs, zk + zp)) < 5,
+            "23a: K1 == plain at an offset")
+    rates_h = rates_w[half:].contiguous()
+    ms = devtime.graphs_in_turns({
+        "offset 0": lambda: poisson(rates_h, (5, 6), n_runs=N_RUNS),
+        "offset": lambda: poisson(rates_h, (5, 6), n_runs=N_RUNS,
+                                  offset=half * per)})
+    log(f"phase 23a ({smi}): K1 with a counter offset: rows [{half}, {w}) "
+        f"of {tuple(full.shape)} alone equal the full launch's, offset 0 the "
+        f"launch without one, a shard of every rung its rows (torch.equal); "
+        f"kernel vs plain at the offset: equal={same:.6f} max|diff|={err:g}"
+        f" z=({zk[0]:+.2f}, {zk[1]:+.2f}); device ms at ({half}) x {N_RUNS} "
+        f"x {c}: offset 0 {ms['offset 0']:.5f}, offset {ms['offset']:.5f} "
+        f"(in turns), phase 6's K1 at this shape {k1_phase6_ms:.5f}")
+    return {"max_abs_err": err, "equal_share": same,
+            "ms_offset_0": ms["offset 0"], "ms_offset": ms["offset"]}
+
+
+def phase_sharding(dev, smi, tmp, rates_w, k1_phase6_ms):
+    """Phase 23: walker sharding over torch.distributed ranks on the one
+    card: (a) K1's counter offset; (b) a one-rank NCCL group at full
+    width; (c) two gloo ranks sharing cuda:0, 20 DE steps; (d) sharded PT;
+    (e) the CLI's -mesh cap."""
+    out = {"k1": phase_sharding_k1(dev, smi, rates_w, k1_phase6_ms)}
+
+    # (b) the production backend's path: a one-rank NCCL group
+    prob, logp, p0 = shard_setup(dev)
+    parallel_dist.initialize(f"127.0.0.1:{parallel_launch.free_port()}", 1,
+                             0, device=dev, timeout_s=SHARD_DEADLINE_S)
+    try:
+        mesh = parallel.make_mesh(dev)
+        sharded = parallel.make_sharded_logp_batch(logp, mesh,
+                                                   by_row=prob.draws_by_row)
+        for rows in (p0, p0[::2].contiguous()):
+            got = sharded(rows, torch.Generator().manual_seed(6))
+            want = logp(rows, torch.Generator().manual_seed(6))
+            require(torch.equal(got, want),
+                    f"23b: one NCCL rank == the plain evaluator on "
+                    f"{rows.shape[0]} walkers, bit for bit")
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"phase 23b: a one-rank {backend} group at full width ({N_WALKERS} "
+        f"and {N_WALKERS // 2} walkers x {N_RUNS} runs x {N_DRAWS} draws, "
+        f"counts): make_sharded_logp_batch == the plain evaluator, bit for "
+        f"bit")
+
+    # (c), (d): the one-process references, then two gloo ranks
+    half = logp(p0[::2].contiguous(), torch.Generator().manual_seed(6))
+    lp0, chain, rate_one = shard_fit(logp, p0, dev)
+    del prob, logp
+    _, _, loglike, logprior, p_pt = cli_sg.tof_pt_setup(0, PT_T, PT_W, dev)
+    pt_ref = shard_pt(loglike, logprior, p_pt, dev)
+    del loglike, logprior, p_pt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel_launch.launch(shard_rank, SHARD_RANKS, backend="gloo",
+                                   timeout_s=SHARD_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    res = {"bitwise": {}, "max_abs_diff": {}}
+    for r in ranks:
+        for name, got, want, rtol in (
+                ("half_log_probs", r["half_log_probs"], half, LP_RTOL),
+                ("initial_log_probs", r["initial_log_probs"], lp0, LP_RTOL),
+                ("positions", r["positions"], chain.positions, POS_RTOL),
+                ("log_probs", r["log_probs"], chain.log_probs, LP_RTOL)):
+            bit, d = contract_a(got, want.cpu(), rtol,
+                                f"23c rank {r['rank']} {name}")
+            res["bitwise"][f"{name}_rank{r['rank']}"] = bit
+            res["max_abs_diff"][f"{name}_rank{r['rank']}"] = d
+        require(r["same_on_ranks"], "23c: contract C, every rank holds the "
+                "same positions")
+        used = r["launches"]
+        require(used["poisson"] == used["tof_hist"] == r["evaluations"]
+                and used["weighted_hist"] == used["transport_moments"] == 0,
+                f"23c rank {r['rank']}: K1 and K2 once per sharded "
+                f"evaluation on its shard ({used})")
+        for name, got, want in zip(("positions", "log_like", "log_prior"),
+                                   r["pt"], pt_ref):
+            bit, d = contract_a(got, want.cpu(),
+                                POS_RTOL if name == "positions" else LP_RTOL,
+                                f"23d rank {r['rank']} {name}")
+            res["bitwise"][f"pt_{name}_rank{r['rank']}"] = bit
+            res["max_abs_diff"][f"pt_{name}_rank{r['rank']}"] = d
+    res.update(launches_per_rank=[r["launches"] for r in ranks],
+               evaluations_per_rank=ranks[0]["evaluations"],
+               rate_two_ranks_one_card=[r["rate"] for r in ranks],
+               rate_one_process=rate_one, ranks_wall_s=wall)
+    log(f"phase 23c ({smi}): two gloo ranks sharing cuda:0, {SHARD_STEPS} "
+        f"DE steps at {N_WALKERS} walkers x {N_RUNS} runs x {N_DRAWS} "
+        f"draws (each rank {N_WALKERS // 2 // SHARD_RANKS} walkers of every "
+        f"half-ensemble): contract A against one process (positions rtol "
+        f"{POS_RTOL}, log-probs rtol {LP_RTOL}) held; bitwise "
+        f"{res['bitwise']}; max |d| {res['max_abs_diff']}; contract C held; "
+        f"launches per rank {res['launches_per_rank']} over "
+        f"{res['evaluations_per_rank']} evaluations; "
+        f"{np.round(res['rate_two_ranks_one_card'], 1).tolist()} "
+        f"walker-steps/s (two ranks sharing one card; not a scaling figure)"
+        f", one process {rate_one:.1f}; the ranks' wall clock {wall:.1f} s")
+    log(f"phase 23d ({smi}): make_sharded_pt_batch over the two ranks, "
+        f"-model tof ({PT_T} temps x {PT_W} walkers, 2 runs, 50k draws, "
+        f"{SHARD_PT_STEPS} steps): contract A against the unsharded "
+        f"sample_pt held")
+    out.update(res)
+
+    # (e) -mesh 2 on a one-GPU host: capped to one GPU, the -mesh 1 chain
+    flags = CLI_FULL + ["-sampling", "counts", "-likelihood", "poisson",
+                        "-nMainSteps", "4"]
+    chains = {}
+    for mesh_n in ("2", "1"):
+        where = tmp / f"mesh{mesh_n}"
+        where.mkdir()
+        _, text, _, used = run_cli(cli_simult, flags + ["-mesh", mesh_n],
+                                   where, f"phase 23e (-mesh {mesh_n})")
+        chains[mesh_n] = (where / "mainchain.dat").read_bytes()
+        if mesh_n == "2":
+            n_gpus = torch.cuda.device_count()
+            require(n_gpus > 1 or f"-mesh 2 capped at the {n_gpus} GPU(s)"
+                    in text, "23e: -mesh 2 says it is capped at one GPU")
+    require(chains["2"] == chains["1"],
+            "23e: the -mesh 2 chain (one GPU) == the -mesh 1 chain")
+    log(f"phase 23e: cli.simult_fit -mesh 2 on {torch.cuda.device_count()} "
+        f"GPU(s): capped, says so, and writes the -mesh 1 mainchain.dat "
+        f"byte for byte ({len(chains['1'])} bytes)")
+    return out
+
+
 # --- phase 22: parallel tempering -----------------------------------------
 
 PT_T, PT_W = 20, 100                 # the CLI's -nTemps, -ptWalkers
@@ -2597,6 +2873,14 @@ def main():
         torch.cuda.empty_cache()
         csi_out = phase_csi2016(dev, smi, Path(tmp), rate, launches)
 
+    # phase 23: walker sharding over torch.distributed ranks (before phase
+    # 11 too, and before phase 22's profiler: its one-process reference
+    # fit is timed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        torch.cuda.empty_cache()
+        shard_out = phase_sharding(dev, smi, Path(tmp), rates.lam,
+                                   times["poisson"][0])
+
     # phase 22: parallel tempering (before phase 11 too; its profile of
     # the tempered step is the first profiler of the process)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pt_") as tmp:
@@ -2642,10 +2926,19 @@ def main():
                               "mc_taylor"),
     }
     extra_shapes = {
-        "poisson": {"at_pt_tof_shape": pt_out["k12"]["poisson"]},
+        "poisson": {"at_pt_tof_shape": pt_out["k12"]["poisson"],
+                    # phase 23: the counter offset, and the launches on
+                    # each rank's shard of the two-rank fit
+                    "at_offset": shard_out["k1"],
+                    "launches_sharded_per_rank": [
+                        u["poisson"] for u in
+                        shard_out["launches_per_rank"]]},
         "weighted_hist": {"at_simple_shapes": simple_out["k3"]},
         "tof_hist": {"at_templates_shape": templates_out["k2"],
-                     "at_pt_tof_shape": pt_out["k12"]["tof_hist"]},
+                     "at_pt_tof_shape": pt_out["k12"]["tof_hist"],
+                     "launches_sharded_per_rank": [
+                         u["tof_hist"] for u in
+                         shard_out["launches_per_rank"]]},
         "transport_moments": {
             "at_templates_shape": templates_out["k4"],
             "at_csi2016_ppc_shape": csi_out["k4"]},
@@ -2717,7 +3010,9 @@ def main():
                       "csi2016_ppc": {k: v for k, v in csi_out.items()
                                       if k != "k4"},
                       "parallel_tempering": {
-                          k: v for k, v in pt_out.items() if k != "k12"}}))
+                          k: v for k, v in pt_out.items() if k != "k12"},
+                      "sharding": {k: v for k, v in shard_out.items()
+                                   if k != "k1"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

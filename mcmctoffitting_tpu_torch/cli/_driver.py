@@ -10,8 +10,12 @@ file names.  Randomness comes from torch generators seeded from ``-seed``
 the device, the host generator that seeds the log-prob's draws, and one
 each for the synthetic data, the initial walkers and the likelihood check.
 Flags that only chose a TPU/XLA schedule or the JAX PRNG (``-runAxis``,
-``-prng``) are accepted with a note; ``-mesh`` > 1, a later slice of the
-port, raises ``models.forward.not_ported``.  ``-profile DIR`` traces the
+``-prng``) are accepted with a note.  ``-mesh N`` shards the ensemble's
+walkers over N ranks (``parallel/``): N GPUs, capped at the GPUs there
+are, or with ``-device cpu`` N gloo ranks; the CLI starts them as
+processes of their own (``parallel/launch.py``), or, with the MCMCTOF_*
+variables set, joins the ranks started on several hosts.  Rank 0 alone
+writes the chains and checkpoints and prints.  ``-profile DIR`` traces the
 sampling phases with ``torch.profiler`` (``utils/profiling.py``).  The
 figures need matplotlib; without it each prints the line that says so
 (:func:`draw_figure`), and any other plotting error fails the run.
@@ -29,8 +33,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..models.forward import not_ported, resolve_device
+from ..models.forward import resolve_device
 from ..ops.likelihoods import poisson_binned_terms, poisson_logpmf_terms
+from ..parallel import (distributed, launch, make_mesh,
+                        make_sharded_logp_batch)
 from ..sampler import (BoxLogitTransform, EnsembleState, hmc_sample,
                        init_state, nuts_sample, run_mcmc)
 from ..utils import chain_io, plotting, profiling
@@ -227,7 +233,7 @@ class _Fetch:
 def run_phases(state, phases, logp_batch, *, segment: int, prefix: str,
                fingerprint=None, adaptive_phase: str | None = None,
                tau_factor: float = 50.0, tau_rtol: float = 0.02,
-               move: str = "stretch"):
+               move: str = "stretch", write: bool = True):
     """Drive the sampler through (name, chain_path, n_steps, truncate)
     phases, streaming chain text per segment and checkpointing per phase.
 
@@ -239,7 +245,10 @@ def run_phases(state, phases, logp_batch, *, segment: int, prefix: str,
     stops once every parameter's integrated autocorrelation time tau
     satisfies S >= tau_factor * tau and the tau estimate moved < tau_rtol
     between consecutive checks (first check after max(80, 2 * segment)
-    steps, then at 1.2x backoff), as in the JAX package.
+    steps, then at 1.2x backoff), as in the JAX package.  Without
+    ``write`` (a rank other than 0) no chain text, checkpoint or
+    diagnostics are written; the segments, the tau checks and the stop
+    decision are the same on every rank (their positions are).
 
     Returns (final_state, total_steps, elapsed_s).
     """
@@ -250,7 +259,7 @@ def run_phases(state, phases, logp_batch, *, segment: int, prefix: str,
     t0 = time.time()
     total_steps = 0
     for phase, path, n_steps, truncate in phases:
-        if truncate:
+        if truncate and write:
             open(path, "w").close()
         adaptive = phase == adaptive_phase
         pos_acc: list[np.ndarray] = []
@@ -265,7 +274,8 @@ def run_phases(state, phases, logp_batch, *, segment: int, prefix: str,
             nonlocal phase_accepted
             fetch, done_s = pend
             positions, log_probs, n_acc = fetch.result()
-            chain_io.append_chain_text(path, positions, log_probs)
+            if write:
+                chain_io.append_chain_text(path, positions, log_probs)
             phase_accepted += n_acc
             rate = (done_s + total_done0) * n_walkers / (time.time() - t0)
             acc = phase_accepted / (done_s * n_walkers)
@@ -312,10 +322,11 @@ def run_phases(state, phases, logp_batch, *, segment: int, prefix: str,
             if pending is not None:   # final or interrupted segment
                 flush(pending)
                 pending = None
-        chain_io.save_checkpoint(
-            prefix + f"{phase.replace('-', '')}.ckpt.npz", state,
-            extra=extra)
-        _print_diagnostics(phase, path)
+        if write:
+            chain_io.save_checkpoint(
+                prefix + f"{phase.replace('-', '')}.ckpt.npz", state,
+                extra=extra)
+            _print_diagnostics(phase, path)
     return state, total_steps, time.time() - t0
 
 
@@ -372,8 +383,9 @@ def add_common_flags(p, refs: dict) -> None:
     p.add_argument("-outputPrefix", default="", type=str)
     p.add_argument("-seed", default=0, type=int)
     p.add_argument("-mesh", default=0, type=int,
-                   help="max devices for walker sharding (0 = all); more "
-                        "than one GPU is a later slice of the port")
+                   help="max devices for walker sharding (0 = all GPUs): "
+                        "one rank per GPU, or with -device cpu this many "
+                        "gloo ranks on the CPU")
     p.add_argument("-chunkWalkers", default=0, type=int,
                    help="eval walkers in chunks of this size (memory cap)")
     p.add_argument("-segment", default=50, type=int,
@@ -461,19 +473,84 @@ def add_common_flags(p, refs: dict) -> None:
                         "no effect here")
 
 
-def common_setup(args) -> torch.device:
-    """The device of the fit; notes for the flags that have no effect
-    here, and ``not_ported`` for the features of later slices."""
-    if args.mesh > 1:
-        raise not_ported(f"-mesh {args.mesh} (more than one GPU)",
-                         "slice 8")
+def mesh_ranks(args, n_walkers: int) -> int:
+    """How many local ranks ``-mesh`` asks this invocation to start: 1
+    where it runs the fit itself (one device; a gradient sampler; or it is
+    already a rank).  On CUDA, N (0: every GPU) capped at the GPUs there
+    are, as the JAX CLI caps at ``jax.devices()``; on the CPU, N gloo
+    ranks.  Then, as the JAX CLI does, the largest count that divides the
+    half-ensemble, with a warning when that idles ranks."""
+    if args.sampler != "ensemble" or _in_multirank_run():
+        if args.mesh > 1 and args.sampler != "ensemble":
+            print(f"note: -mesh {args.mesh} shards the ensemble sampler's "
+                  f"walkers; -sampler {args.sampler} runs on one device")
+        return 1
+    if resolve_device(args.device).type == "cuda":
+        n_gpus = torch.cuda.device_count()
+        n = min(args.mesh, n_gpus) if args.mesh else n_gpus
+        if args.mesh > n_gpus:
+            print(f"note: -mesh {args.mesh} capped at the {n_gpus} GPU(s) "
+                  "of this host")
+    else:
+        n = max(args.mesh, 1)
+    n_fit = n
+    while n_fit > 1 and (n_walkers // 2) % n_fit:
+        n_fit -= 1
+    if n_fit < n:
+        # loud: silently running -nWalkers 1022 on 1 of 8 GPUs is a huge
+        # slowdown
+        per = (n_walkers // 2 // n_fit) * 2 * n
+        print(f"WARNING: half-ensemble ({n_walkers}/2 walkers) does not "
+              f"divide across {n} devices; using {n_fit} and idling "
+              f"{n - n_fit} — pick a walker count divisible by 2*{n} (e.g. "
+              f"-nWalkers {max(per, 2 * n)}) to use the full mesh")
+    return n_fit
+
+
+def _in_multirank_run() -> bool:
+    """This process is a rank: of ranks this CLI started, or of a run
+    started on several hosts with the MCMCTOF_* variables."""
+    return (torch.distributed.is_available()
+            and torch.distributed.is_initialized()) or (
+        distributed.ENV_NUM_PROCESSES in os.environ)
+
+
+def run_ranks(main: Callable, argv, args, n_ranks: int):
+    """``main(argv)`` in ``n_ranks`` local ranks (``parallel/launch.py``:
+    NCCL, one GPU each, or gloo on the CPU); returns rank 0's result."""
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    print(f"-mesh {args.mesh}: {n_ranks} ranks ({backend}), walker axis "
+          "sharded", flush=True)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return launch.launch(main, n_ranks, (argv,), backend=backend,
+                         timeout_s=None)[0]
+
+
+def common_setup(args):
+    """(device, mesh) of the fit: this rank's device and its walker mesh,
+    or the device and None outside a multi-rank run; notes for the flags
+    that have no effect here.  A rank joins the MCMCTOF_* runtime if it
+    is not in one yet; ranks other than 0 print nothing (their standard
+    output goes to os.devnull)."""
     if args.runAxis is not None:
         print(f"note: -runAxis {args.runAxis} has no effect here (it picks "
               "an XLA schedule of the JAX package)")
     if args.prng is not None:
         print(f"note: -prng {args.prng} has no effect here (the port draws "
               "from torch generators and Philox)")
-    return resolve_device(args.device)
+    device = resolve_device(args.device)
+    if args.sampler != "ensemble" or not _in_multirank_run():
+        return device, None
+    if not torch.distributed.is_initialized():
+        distributed.initialize(device=device)
+    mesh = make_mesh(device if device.type == "cpu" else None)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    else:           # the CPU's cores shared out among its ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")
+    return mesh.device, mesh
 
 
 def resolve_sampling(args):
@@ -482,11 +559,17 @@ def resolve_sampling(args):
     return sampling, args.fineGrid or None
 
 
-def build_logp_batch(logp, args):
-    """Walker-batch evaluator; ``-chunkWalkers`` evaluates the batch in
-    chunks of that many walkers (each chunk draws its own seeds from the
-    host generator)."""
+def build_logp_batch(logp, args, mesh=None, *, by_row: bool = False):
+    """Walker-batch evaluator: sharded over ``mesh`` where there is one
+    (``parallel.make_sharded_logp_batch``; ``by_row``: contract A of its
+    docstring, else B), else local.  ``-chunkWalkers`` evaluates (each
+    shard's) batch in chunks of that many walkers; unsharded, each chunk
+    draws its own seeds from the host generator."""
     chunk = args.chunkWalkers
+    if mesh is not None:
+        print(f"walker axis sharded over {mesh.size} ranks")
+        return make_sharded_logp_batch(logp, mesh, chunk=chunk or None,
+                                       by_row=by_row)
     if not chunk:
         return logp
 
@@ -600,11 +683,13 @@ def run_gradient_sampler(args, problem, observed, *, names):
 
 
 def fit_phases(args, problem, observed, logp_batch, *, n_walkers: int,
-               burnin_steps: int, main_steps: int, names):
+               burnin_steps: int, main_steps: int, names, mesh=None):
     """Everything after the set-up that both drivers share: a fresh start
     (initial walkers, initial log-probs) or ``-resume``, the phases, the
     quantile table of the main chain and the rate line.  Returns the
-    CLI's result dict."""
+    CLI's result dict.  In a multi-rank run (``mesh``) every rank samples
+    (and reads the ``-resume`` checkpoint); rank 0 alone writes and
+    reports, and the other ranks return None."""
     prefix = args.outputPrefix
     burnin_path = prefix + "burninchain.dat"
     main_path = prefix + "mainchain.dat"
@@ -626,12 +711,15 @@ def fit_phases(args, problem, observed, logp_batch, *, n_walkers: int,
         phases = (("burn-in", burnin_path, burnin_steps, True),
                   ("main", main_path, main_steps, True))
 
-    with profiled(args.profile):
+    primary = mesh is None or mesh.rank == 0
+    with profiled(args.profile if primary else ""):
         state, total_steps, elapsed = run_phases(
             state, phases, logp_batch, segment=args.segment, prefix=prefix,
             fingerprint=fingerprint,
             adaptive_phase="main" if args.convergeMain else None,
-            tau_factor=args.tauFactor, move=args.move)
+            tau_factor=args.tauFactor, move=args.move, write=primary)
+    if not primary:
+        return None
     if args.profile:
         print(f"profiler trace written to {args.profile}")
     main_chain, _, n_params, _, _ = chain_io.read_chain_text(main_path)

@@ -118,11 +118,14 @@ def main(argv=None) -> dict:
     from ..utils import data_io
     from ._driver import (STREAM_CHECK, STREAM_DATA, build_logp_batch,
                           check_likelihood_eval, common_setup, fit_phases,
-                          run_gradient_sampler, seeded_generator,
-                          stream_seed)
+                          mesh_ranks, run_gradient_sampler, run_ranks,
+                          seeded_generator, stream_seed)
 
-    device = common_setup(args)
     n_walkers, burnin_steps, main_steps, _ = sizes(args)
+    n_ranks = mesh_ranks(args, n_walkers)
+    if n_ranks > 1:
+        return run_ranks(main, argv, args, n_ranks)
+    device, mesh = common_setup(args)
     problem = build_problem(args, device)
 
     if args.inputDataFilename:
@@ -148,10 +151,11 @@ def main(argv=None) -> dict:
              + [f"BG{i+1}" for i in range(3)])
     if args.sampler != "ensemble":
         return run_gradient_sampler(args, problem, observed, names=names)
-    logp_batch = build_logp_batch(problem.make_log_prob_fn(observed), args)
+    logp_batch = build_logp_batch(problem.make_log_prob_fn(observed), args,
+                                  mesh, by_row=problem.draws_by_row)
     return fit_phases(args, problem, observed, logp_batch,
                       n_walkers=n_walkers, burnin_steps=burnin_steps,
-                      main_steps=main_steps, names=names)
+                      main_steps=main_steps, names=names, mesh=mesh)
 
 
 if __name__ == "__main__":

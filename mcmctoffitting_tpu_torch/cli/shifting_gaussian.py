@@ -204,7 +204,9 @@ def tof_pt_setup(seed: int, n_temps: int, n_walkers: int, device):
     count arrays, batched log-likelihood and log-prior of (N, D) thetas and
     the host generator, initial walkers (T, W, D)).  simultFit, 2 runs at
     50k draws, counts forward, corrected likelihood; data synthesized at
-    the truth; walkers from ``initial_walkers_from_observed``."""
+    the truth; walkers from ``initial_walkers_from_observed``.  The
+    log-likelihood takes ``walker_offset`` and ``walker_blocks``
+    (``parallel.make_sharded_pt_batch`` with ``by_row``)."""
     import torch
 
     from ..models import simult
@@ -223,8 +225,8 @@ def tof_pt_setup(seed: int, n_temps: int, n_walkers: int, device):
     lo, hi = (torch.as_tensor(v, dtype=torch.float32, device=device)
               for v in (problem.param_lo, problem.param_hi))
 
-    def loglike(thetas, generator):
-        return problem.log_like(thetas, generator, obs)
+    def loglike(thetas, generator, **rows):
+        return problem.log_like(thetas, generator, obs, **rows)
 
     def logprior(thetas, generator):
         return box_lnprior(thetas, lo, hi, inclusive=True)

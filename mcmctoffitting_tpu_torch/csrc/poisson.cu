@@ -19,7 +19,12 @@
 // The rates may be given once per walker, (W, C), and drawn for R runs: the
 // output is (W, R, C) and element (w, r, c) reads rate (w, c).  The counter
 // of a draw is the index of its output element, so the draws equal those of
-// the rates copied R times.  The two key words come by value, or from two
+// the rates copied R times.  A launch may draw a part of a larger array
+// (a shard of the walkers): the counter is then the element's index in
+// that array, the launch's index plus an offset, and where the part is
+// blocks of `block` elements one every `stride` elements (a shard of every
+// rung of a tempered ensemble), each block's start in it.  The part then
+// draws exactly the larger array's numbers.  The two key words come by value, or from two
 // int64 words in device memory read when the kernel runs, so that a launch
 // captured in a CUDA graph can be replayed with another seed.
 //
@@ -235,13 +240,29 @@ __device__ __forceinline__ float load_rate(const float* __restrict__ lam_in,
   return lam > 0.0f ? lam : 0.0f;  // NaN and negative rates draw 0
 }
 
+// The Philox counter of element i of the launch: its index in the array the
+// launch is a part of (see the top of the file).  stride 0: one block.
+template <typename Index>
+struct CounterMap {
+  unsigned long long offset, stride;
+  Divider<Index> block;
+  __device__ __forceinline__ uint64_t operator()(Index i) const {
+    uint64_t c = static_cast<uint64_t>(i);
+    if (stride != 0ull) {
+      const Index q = block.div(i);
+      c = static_cast<uint64_t>(q) * stride + (i - q * block.d);
+    }
+    return offset + c;
+  }
+};
+
 template <typename Index>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     poisson_kernel(const float* __restrict__ lam_in, float* __restrict__ out,
                    Index n, const Divider<Index> row_len,
                    const Divider<Index> n_rep,
                    const long long* __restrict__ seed_words, uint32_t seed0,
-                   uint32_t seed1) {
+                   uint32_t seed1, const CounterMap<Index> counter) {
   __shared__ int s_count;
   __shared__ int s_slow[kThreads];     // threads of the block left to phase 2
   __shared__ float s_slow_lam[kThreads];   // and their rates
@@ -262,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   float lam = 0.0f;
   if (i < n) {
     lam = load_rate(lam_in, i, row_len, n_rep);
-    const uint64_t ctr = static_cast<uint64_t>(i);
+    const uint64_t ctr = counter(i);
     const uint4 bits = philox4x32_10(
         make_uint4(static_cast<uint32_t>(ctr),
                    static_cast<uint32_t>(ctr >> 32), 0u, 0u), key);
@@ -300,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const int n_slow = s_count;
   if (tid < n_slow) {
     const Index j = first + static_cast<Index>(s_slow[tid]);
-    const uint64_t ctr = static_cast<uint64_t>(j);
+    const uint64_t ctr = counter(j);
     const uint32_t c_lo = static_cast<uint32_t>(ctr);
     const uint32_t c_hi = static_cast<uint32_t>(ctr >> 32);
     const uint4 bits = philox4x32_10(make_uint4(c_lo, c_hi, 0u, 0u), key);
@@ -332,31 +353,43 @@ unsigned int blocks_for(long long n) {
 // lam: (n / (n_rep * row_len), row_len) rates; out: n draws, every row of
 // rates drawn n_rep times (n_rep = 1: lam has n elements, row_len is not
 // read).  seed_words: two int64 words in device memory holding the 32-bit
-// key words, or null for the key (seed0, seed1).
+// key words, or null for the key (seed0, seed1).  offset, block, stride:
+// the Philox counter of output element i is offset + i, or with stride > 0
+// offset + (i / block) * stride + i % block (block <= stride).
 extern "C" int mcmctof_poisson(const float* lam, float* out, long long n,
                                long long row_len, long long n_rep,
                                const long long* seed_words, uint32_t seed0,
-                               uint32_t seed1, int device, void* stream) {
+                               uint32_t seed1, unsigned long long offset,
+                               long long block, unsigned long long stride,
+                               int device, void* stream) {
   mcmctof::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   if (n <= 0) return 0;
   if (n_rep < 1 || (n_rep > 1 && (row_len < 1 || n % (n_rep * row_len)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (stride != 0ull &&
+      (block < 1 || stride < static_cast<unsigned long long>(block))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_rep == 1) row_len = 1;   // not read
+  if (stride == 0ull) block = 1;  // not read
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned int blocks = mcmctof::blocks_for(n);
   if (n <= 0xffffffffll - mcmctof::kThreads) {
     using Div = mcmctof::Divider<uint32_t>;
+    const mcmctof::CounterMap<uint32_t> counter{offset, stride, Div(block)};
     mcmctof::poisson_kernel<uint32_t><<<blocks, mcmctof::kThreads, 0, s>>>(
         lam, out, static_cast<uint32_t>(n), Div(row_len), Div(n_rep),
-        seed_words, seed0, seed1);
+        seed_words, seed0, seed1, counter);
   } else {
     using Div = mcmctof::Divider<unsigned long long>;
+    const mcmctof::CounterMap<unsigned long long> counter{offset, stride,
+                                                          Div(block)};
     mcmctof::poisson_kernel<unsigned long long>
         <<<blocks, mcmctof::kThreads, 0, s>>>(
             lam, out, static_cast<unsigned long long>(n), Div(row_len),
-            Div(n_rep), seed_words, seed0, seed1);
+            Div(n_rep), seed_words, seed0, seed1, counter);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -94,10 +94,21 @@ def exact_rows_per_chunk(n_x: int, n: int) -> int:
     return max(1, _EXACT_CHUNK // (n_x * max(1, n)))
 
 
-def not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mcmctoffitting_tpu_torch yet "
-        f"(ROADMAP.md Queue 1, {slice_})")
+def k1_counters(walker_offset: int, walker_blocks, per_walker: int) -> dict:
+    """K1's counter layout (``ops.cuda_poisson.poisson``'s ``offset`` and
+    ``blocks``) for a draw of ``per_walker`` elements per walker from a
+    batch that is a part of a larger walker batch: its walker i is walker
+    ``walker_offset + i`` of that batch, or with ``walker_blocks = (m,
+    n)`` (m walkers of each n, a shard of every rung of a tempered
+    ensemble) walker ``walker_offset + (i // m) n + i % m``.  The draw
+    then equals those rows of the larger batch's draw.  A batch that is
+    the whole batch passes no keyword: K1's launch as it is without one."""
+    if walker_offset == 0 and walker_blocks is None:
+        return {}
+    blocks = (None if walker_blocks is None
+              else (walker_blocks[0] * per_walker,
+                    walker_blocks[1] * per_walker))
+    return {"offset": walker_offset * per_walker, "blocks": blocks}
 
 
 def resolve_device(device) -> torch.device:
@@ -467,12 +478,16 @@ class TofForward(torch.nn.Module):
                               params[:, 2], params[:, 3], spec.n_samples,
                               spec.truncated, spec.moment_closure)
 
-    def _counts_grid_and_mean(self, params, generator):
+    def _counts_grid_and_mean(self, params, generator, walker_offset=0,
+                              walker_blocks=None):
         rates = self.counts_rates(params)
         # every run of a walker draws from the walker's rates: the kernel
         # reads them once per run, no copy along the run axis
+        per_walker = self.n_runs * rates.lam.shape[-1]
         counts = poisson(rates.lam, seed_words(generator),
-                         n_runs=self.n_runs)                  # (W, R, F+2)
+                         n_runs=self.n_runs,
+                         **k1_counters(walker_offset, walker_blocks,
+                                       per_walker))           # (W, R, F+2)
         per_run = CountsRates(*(t[:, None] for t in rates))  # run axis
         moments, e0_means = moments_from_counts(self.e0grid, counts, per_run)
         return self.attenuate(contract(self.e0grid, moments)), e0_means
@@ -570,17 +585,22 @@ class TofForward(torch.nn.Module):
     # --- shared stages --------------------------------------------------
 
     def grid_and_mean(self, params: torch.Tensor,
-                      generator: torch.Generator):
+                      generator: torch.Generator, *, walker_offset: int = 0,
+                      walker_blocks=None):
         """XS-weighted (x, eD) grids and e0 means of every walker and run:
         params (W, 4) -> ((W, R, M, Be), (W, R)).  Each run draws its own
         Poisson cell counts (counts) or initial energies (mc), seeded by
         the host ``generator``; 'expected' draws nothing, leaves
         ``generator`` alone and returns one grid per walker,
-        (W, 1, M, Be), for all its runs."""
+        (W, 1, M, Be), for all its runs.  ``walker_offset`` and
+        ``walker_blocks`` place the walkers in a larger batch
+        (:func:`k1_counters`): the counts then equal that batch's draws of
+        the same rows.  The mc draw does not depend on them."""
         if self.spec.sampling == "expected":
             return self._expected_grid_and_mean(params)
         if self.spec.sampling == "counts":
-            grids, e0_means = self._counts_grid_and_mean(params, generator)
+            grids, e0_means = self._counts_grid_and_mean(
+                params, generator, walker_offset, walker_blocks)
         else:
             grids, e0_means = self._mc_grid_and_mean(params, generator)
         return grids, self.lattice_e0_means(params, e0_means)
@@ -609,15 +629,20 @@ class TofForward(torch.nn.Module):
         return tof_d + self.tof_n
 
     def background(self, bg_levels: torch.Tensor,
-                   generator: torch.Generator) -> torch.Tensor:
+                   generator: torch.Generator, *, walker_offset: int = 0,
+                   walker_blocks=None) -> torch.Tensor:
         """The per-run background of every bin, zero on the padding bins:
         levels (W, R) -> (W, R, n_pad).  'expected': the level itself.
         'poisson': one draw per bin (kernel K1, one launch), seeded by two
-        words of the host ``generator``; a level <= 0 draws 0."""
+        words of the host ``generator``; a level <= 0 draws 0;
+        ``walker_offset`` and ``walker_blocks`` as for
+        :meth:`grid_and_mean`."""
         rates = bg_levels[..., None].expand(
             bg_levels.shape + (self.pad_mask.shape[-1],))
         if self.spec.bg_mode == "poisson":
-            rates = poisson(rates.contiguous(), seed_words(generator))
+            rates = poisson(rates.contiguous(), seed_words(generator),
+                            **k1_counters(walker_offset, walker_blocks,
+                                          rates[0].numel()))
         return torch.where(self.pad_mask, rates, 0.0)
 
     def tof_histogram(self, base_tof: torch.Tensor,
@@ -662,18 +687,25 @@ class TofForward(torch.nn.Module):
     def tof_spectra_multi(self, params: torch.Tensor, scales: torch.Tensor,
                           generator: torch.Generator,
                           bg_levels: Optional[torch.Tensor] = None, *,
-                          get_pdf: bool = True, return_spectra: bool = False):
+                          get_pdf: bool = True, return_spectra: bool = False,
+                          walker_offset: int = 0, walker_blocks=None):
         """All runs of all walkers: beam parameters (W, 4), run scales
         (W, R) and background levels (W, R) or None -> (W, R, n_pad).  The
         host ``generator`` seeds first the grid's draw, then (only with a
         Poisson background) the background's.  ``get_pdf=False`` keeps the
         raw TOF sums (no density normalisation).  ``return_spectra`` returns
         the tuple (spectra, normalised (x, eD) grids (W, R or 1, M, Be),
-        draw counts (W, R, M, Be))."""
-        grids, e0_means = self.grid_and_mean(params, generator)
+        draw counts (W, R, M, Be)).  ``walker_offset`` (the index of the
+        first walker in a larger batch) and ``walker_blocks``: see
+        :func:`k1_counters`; the K1 draws are then those rows of the
+        larger batch's."""
+        rows = ({} if walker_offset == 0 and walker_blocks is None else
+                {"walker_offset": walker_offset,
+                 "walker_blocks": walker_blocks})
+        grids, e0_means = self.grid_and_mean(params, generator, **rows)
         base_tof, draws = self.lattice(grids, e0_means)
         background = (None if bg_levels is None
-                      else self.background(bg_levels, generator))
+                      else self.background(bg_levels, generator, **rows))
         out = self.spectra(base_tof, draws, scales, background,
                            get_pdf=get_pdf)
         if return_spectra:

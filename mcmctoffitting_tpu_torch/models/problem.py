@@ -111,12 +111,25 @@ class JointFitProblem:
         return ObservedRuns(torch.as_tensor(counts, device=self.device),
                             torch.as_tensor(mask, device=self.device))
 
-    def run_spectra(self, thetas: torch.Tensor,
-                    generator: torch.Generator) -> torch.Tensor:
+    @property
+    def draws_by_row(self) -> bool:
+        """Whether every random draw of the log-prob is K1's, whose
+        numbers follow each walker's row (``walker_offset``): counts, and
+        'expected' with or without a Poisson background.  mc draws its
+        energies from a device generator, whose numbers no offset
+        places."""
+        return self.spec.sampling in ("counts", "expected")
+
+    def run_spectra(self, thetas: torch.Tensor, generator: torch.Generator,
+                    *, walker_offset: int = 0,
+                    walker_blocks=None) -> torch.Tensor:
         """Model spectra as the likelihood sees them: (W, D) ->
-        (W, R, n_pad)."""
+        (W, R, n_pad); ``walker_offset`` and ``walker_blocks`` place the
+        walkers in a larger batch (``forward.k1_counters``)."""
         params, scales, bg_levels = self.split_theta(thetas)
-        return self.forward(params, scales, generator, bg_levels)
+        return self.forward(params, scales, generator, bg_levels,
+                            walker_offset=walker_offset,
+                            walker_blocks=walker_blocks)
 
     def _run_forward(self, run: int) -> TofForward:
         """The forward of run ``run`` alone (built once per run)."""
@@ -140,33 +153,45 @@ class JointFitProblem:
             None if bg_levels is None else bg_levels[:, run],
             get_pdf=get_pdf)
 
-    def log_like(self, thetas, generator, observed: ObservedRuns):
+    def log_like(self, thetas, generator, observed: ObservedRuns, **rows):
         """Joint log-likelihood alone, (W, D) -> (W,): per-run binned
-        Poisson log-likelihoods summed over runs, a NaN total -> -inf."""
-        spectra = self.run_spectra(thetas, generator)
+        Poisson log-likelihoods summed over runs, a NaN total -> -inf.
+        ``rows``: ``walker_offset``, ``walker_blocks`` of
+        :meth:`run_spectra`."""
+        spectra = self.run_spectra(thetas, generator, **rows)
         loglike = (poisson_binned_loglike if self.likelihood == "reference"
                    else poisson_logpmf_loglike)
         total = torch.sum(loglike(spectra, observed.counts,
                                   mask=observed.mask), dim=-1)
         return torch.where(torch.isnan(total), -torch.inf, total)
 
-    def log_prob(self, thetas, generator, observed: ObservedRuns):
+    def log_prob(self, thetas, generator, observed: ObservedRuns, *,
+                 walker_offset: int = 0, walker_blocks=None):
         """Box prior + joint log-likelihood, (W, D) -> (W,).  Walkers
         outside the box are -inf whatever the likelihood says (the forward
-        still runs for them: the batch has one shape), and NaN -> -inf."""
+        still runs for them: the batch has one shape), and NaN -> -inf.
+        ``walker_offset``, the global index of the batch's first walker,
+        and ``walker_blocks`` place the batch in a larger one (a shard):
+        K1 then draws that batch's numbers for these rows."""
         lo, hi = self._bounds
         prior = box_lnprior(thetas, lo, hi, inclusive=True)
-        total = prior + self.log_like(thetas, generator, observed)
+        total = prior + self.log_like(thetas, generator, observed,
+                                      walker_offset=walker_offset,
+                                      walker_blocks=walker_blocks)
         return torch.where(torch.isneginf(prior), -torch.inf,
                            torch.where(torch.isnan(total), -torch.inf,
                                        total))
 
     def make_log_prob_fn(self, observed):
         """Closure (thetas (W, D), host generator) -> (W,) for the
-        sampler."""
+        sampler; it takes :meth:`log_prob`'s ``walker_offset`` and
+        ``walker_blocks`` (``parallel.make_sharded_logp_batch`` passes
+        them)."""
         obs = self.observed_runs(observed)
 
-        def logp(thetas, generator):
-            return self.log_prob(thetas, generator, obs)
+        def logp(thetas, generator, walker_offset=0, walker_blocks=None):
+            return self.log_prob(thetas, generator, obs,
+                                 walker_offset=walker_offset,
+                                 walker_blocks=walker_blocks)
 
         return logp

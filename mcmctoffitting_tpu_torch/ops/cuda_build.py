@@ -46,9 +46,10 @@ _F = ctypes.c_float
 # mcmctof_tof_hist_plan, or the spans of mcmctof_transport_moments_tile)
 _SIGNATURES = {
     # lam, out, n, row_len, n_rep, seed words (device, or null), seed0,
-    # seed1, device, stream
+    # seed1, counter offset, block, stride, device, stream
     "mcmctof_poisson": [_P, _P, _L, _L, _L, _P, ctypes.c_uint32,
-                        ctypes.c_uint32, _I, _P],
+                        ctypes.c_uint32, ctypes.c_uint64, _L,
+                        ctypes.c_uint64, _I, _P],
     # counter/key words (n, 6), out words (n, 4), n, device, stream
     "mcmctof_philox": [_P, _P, _L, _I, _P],
     # base, draws, zt (K, Be), zw (K, Be), max_b sum_k |zw| (1,), lo, hi,

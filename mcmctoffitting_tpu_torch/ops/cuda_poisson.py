@@ -15,13 +15,14 @@ from typing import Optional, Union
 import torch
 
 from .cuda_build import check, current_stream_ptr, load_library
-from .poisson import poisson_ptrs
+from .poisson import check_counter_layout, poisson_ptrs
 
 Seed = Union[tuple, torch.Tensor]
 
 
 def poisson(lam: torch.Tensor, seed: Seed,
-            n_runs: Optional[int] = None) -> torch.Tensor:
+            n_runs: Optional[int] = None, *, offset: int = 0,
+            blocks: Optional[tuple] = None) -> torch.Tensor:
     """Exact Poisson draws of a contiguous float32 rate tensor.
 
     ``seed`` is two 32-bit words: a pair of ints drawn on the host
@@ -30,8 +31,13 @@ def poisson(lam: torch.Tensor, seed: Seed,
     CUDA graph then draws anew when the tensor is refilled between
     replays).  With ``n_runs``, rates (..., C) are drawn once per run,
     (..., n_runs, C): the draws of the rates copied along a run axis,
-    without the copy.
+    without the copy.  ``offset`` (and ``blocks``, (block, stride)) give
+    the output's elements their indices in a larger array of which this
+    draw is a part (``ops/poisson.counter_indices``): the draws equal that
+    array's, e.g. rows [r0, r0 + n) of (W, R, C) draws with ``offset =
+    r0 R C``.
     """
+    check_counter_layout(offset, blocks)
     if lam.dtype != torch.float32:
         raise TypeError(f"poisson: rates must be float32, got {lam.dtype}")
     by_tensor = isinstance(seed, torch.Tensor)
@@ -51,7 +57,7 @@ def poisson(lam: torch.Tensor, seed: Seed,
         shape = shape[:-1] + (n_runs, shape[-1])
     if lam.device.type == "cpu":
         rates = lam if n_runs is None else lam[..., None, :].expand(shape)
-        return poisson_ptrs(rates, seed)
+        return poisson_ptrs(rates, seed, offset=offset, blocks=blocks)
     if lam.device.type != "cuda":
         raise ValueError(f"poisson: no kernel for device {lam.device}")
     if not lam.is_contiguous():
@@ -65,10 +71,11 @@ def poisson(lam: torch.Tensor, seed: Seed,
     else:
         words, s0, s1 = None, int(seed[0]) & 0xFFFFFFFF, \
             int(seed[1]) & 0xFFFFFFFF
+    block, stride = (0, 0) if blocks is None or blocks[0] >= n else blocks
     check(load_library().lib.mcmctof_poisson(
         lam.data_ptr(), out.data_ptr(), n, shape[-1], n_runs or 1, words,
-        s0, s1, lam.device.index, current_stream_ptr(lam.device)),
-        "poisson kernel launch")
+        s0, s1, offset, block, stride, lam.device.index,
+        current_stream_ptr(lam.device)), "poisson kernel launch")
     poisson.launches += 1
     return out
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .fixed_point import channel_shifts, dequantise, quantise
+from .rowwise import rowwise_matmul
 
 # bounds of the fine-cell channels (1, t, t^2, t^3) over [e0_lo, e0_hi]
 MOMENT_BOUNDS = (1.0, 1.0, 1.0, 1.0)
@@ -245,14 +246,17 @@ class E0Grid(torch.nn.Module):
 
 
 def contract(grid: E0Grid, moments: torch.Tensor) -> torch.Tensor:
-    """(..., 4, F) fine-cell moments -> (..., M, Be) grid: one float32
-    matmul (rows, 4F) @ (4F, M*Be) against the static A operator.  The
-    moments are never rounded, whatever A was rounded to (the cubic
-    reconstruction cancels across the four channel rows, so rounding the
-    moments too would cost several percent of the grid)."""
+    """(..., 4, F) fine-cell moments -> (..., M, Be) grid: a float32
+    matmul (rows, 4F) @ (4F, M*Be) against the static A operator, in
+    blocks of a fixed row count (``ops/rowwise.rowwise_matmul``: a
+    walker's grid does not depend on the batch it is evaluated in).  The moments are
+    never rounded, whatever A was rounded to (the cubic reconstruction
+    cancels across the four channel rows, so rounding the moments too
+    would cost several percent of the grid)."""
     lead = moments.shape[:-2]
     flat = moments.reshape(-1, 4 * grid.n_fine)
-    return (flat @ grid.a_matrix).reshape(lead + (grid.n_x, grid.n_ed))
+    return rowwise_matmul(flat, grid.a_matrix).reshape(
+        lead + (grid.n_x, grid.n_ed))
 
 
 def fine_cell_moments(grid: E0Grid, e0: torch.Tensor) -> torch.Tensor:

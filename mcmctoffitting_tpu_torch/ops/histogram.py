@@ -1,7 +1,7 @@
 """Fixed-range weighted histograms.
 
-Port of ``weighted_histogram``, ``weighted_histogram_multi_window`` and
-``histogram_density`` and ``delta_moment_histogram`` of
+Port of ``weighted_histogram``, ``weighted_histogram_multi_window``,
+``histogram_density``, ``delta_moment_histogram`` and ``bin_index`` of
 ``mcmctoffitting_tpu/ops/histogram.py``.
 ``weighted_histogram`` (one range over the trailing axis) dispatches by
 device to kernel K3 and lives with it in ``ops/cuda_hist.py``.  The JAX package builds its
@@ -45,6 +45,17 @@ def window_constants(windows, *, device) -> WindowConstants:
         torch.as_tensor(np.asarray([w.n_bins - 1 for w in windows], np.int32),
                         device=device),
         max(w.n_bins for w in windows))
+
+
+def bin_index(values: torch.Tensor, lo: float, hi: float, n_bins: int):
+    """np.histogram-compatible bin index of every value: (idx int32,
+    in_range bool), the shape of ``values``.  idx = floor((v - lo) n_bins /
+    (hi - lo)) clipped to [0, n_bins - 1] (v == hi in the last bin);
+    in_range = lo <= v <= hi (NaN: False, its index 0)."""
+    v = torch.as_tensor(values)
+    scaled = torch.floor((v - lo) * (n_bins / (hi - lo)))
+    idx = torch.clamp(torch.nan_to_num(scaled, nan=0.0), 0, n_bins - 1)
+    return idx.to(torch.int32), (v >= lo) & (v <= hi)
 
 
 def window_bins(values: torch.Tensor, win: WindowConstants):

@@ -10,7 +10,10 @@ approximation anywhere.
 
 Random stream: uniform j of round r for element i is word j of
 Philox4x32-10(counter = (i mod 2^32, i div 2^32, r, 0), key = seed),
-mapped to [0, 1) as (bits >> 8) * 2^-24.  Inversion lanes use word 0 of
+mapped to [0, 1) as (bits >> 8) * 2^-24.  A draw of a part of a larger
+array (a shard of the walkers) gives each element its index in that
+array instead (:func:`counter_indices`), and so draws exactly the larger
+array's numbers.  Inversion lanes use word 0 of
 round 0; PTRS round r uses words 0 (u) and 1 (v).  The CUDA kernel draws
 from the same stream with the same formulas, so on the card kernel and
 plain version agree element by element (up to rare last-ulp differences
@@ -39,6 +42,32 @@ def seed_words(generator: torch.Generator) -> tuple[int, int]:
     words = torch.randint(0, 1 << 32, (2,), generator=generator,
                           dtype=torch.int64)
     return int(words[0]), int(words[1])
+
+
+def counter_indices(n: int, offset: int = 0, blocks=None, *,
+                    device=None) -> torch.Tensor:
+    """The Philox counters of the ``n`` elements of a draw: ``offset + i``,
+    the elements' indices in a larger array of which the draw is a part.
+    ``blocks = (block, stride)``: the part is blocks of ``block``
+    consecutive elements of that array, one every ``stride`` elements (the
+    shard of every rung of a tempered ensemble), so element i has counter
+    offset + (i // block) * stride + i % block."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if blocks is not None:
+        block, stride = blocks
+        q = torch.div(idx, block, rounding_mode="floor")
+        idx = q * stride + (idx - q * block)
+    return idx + offset
+
+
+def check_counter_layout(offset: int, blocks) -> None:
+    """Raise unless ``offset`` >= 0 and ``blocks`` is None or (block,
+    stride) with 1 <= block <= stride."""
+    if offset < 0:
+        raise ValueError(f"poisson: counter offset {offset} < 0")
+    if blocks is not None and not 1 <= blocks[0] <= blocks[1]:
+        raise ValueError(f"poisson: blocks (block, stride) = {blocks} need "
+                         "1 <= block <= stride")
 
 
 def _mulhilo(a: int, b):
@@ -124,15 +153,19 @@ def _small_inversion(u, lam):
     return cnt
 
 
-def poisson_ptrs(lam: torch.Tensor, seed) -> torch.Tensor:
+def poisson_ptrs(lam: torch.Tensor, seed, *, offset: int = 0,
+                 blocks=None) -> torch.Tensor:
     """Exact Poisson draws of a float32 rate tensor (any shape, any
     device) on the Philox stream keyed by ``seed``: two 32-bit words, as
     a pair of ints or as an int64 tensor of two words (read without a
-    synchronize).  NaN or negative rates draw 0."""
+    synchronize).  NaN or negative rates draw 0.  ``offset`` and
+    ``blocks`` place the draw in a larger array (:func:`counter_indices`).
+    """
+    check_counter_layout(offset, blocks)
     shape = lam.shape
     lam = lam.reshape(-1).to(torch.float32)
     lam = torch.where(lam > 0.0, lam, 0.0)
-    idx = torch.arange(lam.numel(), dtype=torch.int64, device=lam.device)
+    idx = counter_indices(lam.numel(), offset, blocks, device=lam.device)
     ctr_lo, ctr_hi = idx & _MASK32, idx >> 32
     if isinstance(seed, torch.Tensor):
         words = seed.to(device=lam.device, dtype=torch.int64) & _MASK32

@@ -2,8 +2,9 @@
 the oneBD exponential zero-degree transit kernel and the 10-segment
 zero-degree transit spread.
 
-Port of ``mcmctoffitting_tpu/ops/timing.py`` (``ExGaussianTiming``,
-``GaussianTiming``, ``zero_degree_expo_kernel``/``apply_zero_degree_expo``,
+Port of ``mcmctoffitting_tpu/ops/timing.py`` (``exgaussian_shape``,
+``ExGaussianTiming``, ``GaussianTiming``,
+``zero_degree_expo_kernel``/``apply_zero_degree_expo``,
 ``ZeroDegreeTimingSpread.times_and_weights``).  The kernels are host numpy
 (f64) tables; each convolution ('same' for the beam pulse, the causal
 trimmed 'full' for the expo stage) is batched over any leading axes and
@@ -22,6 +23,21 @@ import torch
 from ..constants import TUNL_SSA_CSI, masses
 
 from .kinematics import tof_np
+from .rowwise import rowwise_matmul
+
+
+def exgaussian_shape(time, sigma: float, tau: float) -> torch.Tensor:
+    """Unnormalised exGaussian timing density at ``time`` (ns from t0), on
+    the input's device (a float32 tensor for anything else):
+    exp(sigma^2/(2 tau^2) - t/tau) * erfc((sigma^2 - t tau) / (sqrt(2)
+    sigma tau)) (``utilities/utilities.py:265-273``; erfc where the
+    reference writes ``1 - erf``, which cancels in float32 on the
+    early-time tail)."""
+    t = torch.as_tensor(time, dtype=None if isinstance(time, torch.Tensor)
+                        else torch.float32)
+    exp_arg = sigma ** 2 / (2.0 * tau ** 2) - t / tau
+    erf_arg = (sigma ** 2 - t * tau) / (math.sqrt(2.0) * sigma * tau)
+    return torch.exp(exp_arg) * torch.special.erfc(erf_arg)
 
 
 def _exgaussian_np(t, sigma: float, tau: float) -> np.ndarray:
@@ -120,10 +136,12 @@ def apply_zero_degree_expo(spectra: torch.Tensor,
 
 def apply_same_matrix(spectra: torch.Tensor,
                       mat: torch.Tensor) -> torch.Tensor:
-    """(..., n) @ (n, n): a batched convolution as one matmul."""
+    """(..., n) @ (n, n): a batched convolution as a matmul, in products
+    of a fixed row count (``ops/rowwise``: a row's result does not depend
+    on the batch)."""
     lead = spectra.shape[:-1]
-    return (spectra.reshape(-1, spectra.shape[-1]) @ mat).reshape(
-        lead + (mat.shape[-1],))
+    return rowwise_matmul(spectra.reshape(-1, spectra.shape[-1]),
+                          mat).reshape(lead + (mat.shape[-1],))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,8 +13,8 @@ F = 128, 2 runs for simultFit).
 * The simple family and the template unfolding: ``cli.simple_tof
   --debug`` for each model and ``cli.template_fit --debug -doML`` (pinned
   to the synthesis truth) on the CPU at reduced sizes.
-* The parser surface: every flag of the JAX parsers parses, the features
-  of later slices raise ``not_ported``, the TPU-schedule flags print a
+* The parser surface: every flag of the JAX parsers parses, ``-mesh 2``
+  (the last slice, now ported) runs its ranks, the TPU-schedule flags print a
   note, ``-quitEarly`` stops after set-up, ``-shiftTOF`` shifts as the
   JAX CLI does, ``-chunkWalkers`` with 'expected' equals the unchunked
   fit, and the default device is the GPU.
@@ -27,6 +27,9 @@ F = 128, 2 runs for simultFit).
 """
 import dataclasses
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -53,6 +56,7 @@ from mcmctoffitting_tpu_torch.utils import chain_io as tchain_io
 
 torch.set_num_threads(1)
 
+REPO = Path(__file__).resolve().parent.parent
 SMALL = ["-nDrawsPerEval", "8000", "-fineGrid", "128", "-batch", "1"]
 SIMULT = ["-nRuns", "2"] + SMALL
 
@@ -322,10 +326,21 @@ def test_every_jax_flag_parses(model):
 
 @pytest.mark.parametrize("argv,slice_", [(["-mesh", "2"], "slice 8")])
 @pytest.mark.parametrize("model", ["simult", "onebd"])
-def test_later_slices_raise_not_ported(model, argv, slice_):
-    cli = tcli_simult if model == "simult" else tcli_onebd
-    with pytest.raises(NotImplementedError, match=slice_):
-        cli.main(argv + ["-device", "cpu", "-quitEarly", "1"])
+def test_later_slices_raise_not_ported(model, argv, slice_, tmp_path):
+    """No slice is left to port: ``-mesh 2`` (slice 8, more than one GPU)
+    no longer raises; on the CPU it starts two gloo ranks, which run the
+    set-up to ``-quitEarly``, and rank 0 alone prints (the CLI as a
+    subprocess with a 120 s limit; its ranks exit with it)."""
+    module = (tcli_simult if model == "simult" else tcli_onebd).__name__
+    proc = subprocess.run(
+        [sys.executable, "-m", module, *argv, *SMALL, "-device", "cpu",
+         "-quitEarly", "1"], cwd=tmp_path, capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NotImplementedError" not in proc.stderr
+    assert slice_ not in proc.stdout + proc.stderr
+    assert "-mesh 2: 2 ranks (gloo), walker axis sharded" in proc.stdout
+    assert proc.stdout.count("quitEarly: setup complete") == 1
 
 
 @pytest.mark.parametrize("model", ["simult", "onebd"])

@@ -206,6 +206,48 @@ def test_poisson_kernel_empty_and_forms(dev):
         poisson(lam.t(), (3, 4))
 
 
+@pytest.mark.parametrize("n_runs", [None, 4])
+def test_poisson_kernel_offset_draws_the_rows_of_the_whole_launch(dev,
+                                                                  n_runs):
+    """K1 with a counter offset: rows [r0, r0 + n) drawn alone equal those
+    rows of the whole launch bit for bit (seed by value and in device
+    memory); offset 0 is the launch without one; the kernel equals its
+    plain version at an offset."""
+    lam = torch.as_tensor(np.geomspace(1e-3, 3e4, 64 * 130).astype(
+        np.float32), device=dev).reshape(64, 130)
+    per_row = (n_runs or 1) * 130
+    whole = poisson(lam, (5, 6), n_runs)
+    assert torch.equal(poisson(lam, (5, 6), n_runs, offset=0), whole)
+    words = torch.tensor([5, 6], dtype=torch.int64, device=dev)
+    for r0, n in ((32, 32), (7, 9), (63, 1)):
+        part = lam[r0:r0 + n].contiguous()
+        for seed in ((5, 6), words):
+            assert torch.equal(
+                poisson(part, seed, n_runs, offset=r0 * per_row),
+                whole[r0:r0 + n])
+        plain = plain_poisson.poisson_ptrs(
+            part if n_runs is None else
+            part[:, None].expand(-1, n_runs, -1), (5, 6),
+            offset=r0 * per_row)
+        assert (plain == whole[r0:r0 + n]).double().mean().item() >= 0.999
+
+
+def test_poisson_kernel_blocks_draw_a_shard_of_every_rung(dev):
+    """K1 with blocks: walkers [r m, (r + 1) m) of each of T rungs of n,
+    one launch, equal those rows of the whole (T n) launch."""
+    t, n, m, c = 5, 16, 4, 130
+    lam = torch.as_tensor(np.geomspace(1e-3, 3e4, t * n * c).astype(
+        np.float32), device=dev).reshape(t * n, c)
+    whole = poisson(lam, (3, 8), n_runs=2).reshape(t, n, 2, c)
+    e = 2 * c
+    for r in range(n // m):
+        rows = lam.reshape(t, n, c)[:, r * m:(r + 1) * m].reshape(t * m, c)
+        got = poisson(rows.contiguous(), (3, 8), n_runs=2, offset=r * m * e,
+                      blocks=(m * e, n * e))
+        assert torch.equal(got.reshape(t, m, 2, c),
+                           whole[:, r * m:(r + 1) * m])
+
+
 def test_poisson_and_tof_kernels_replay_in_a_cuda_graph(dev):
     rng = np.random.default_rng(7)
     base, draws, zt, zw, win = _k2_inputs(rng, dev, (8, 4, 10, 50),

@@ -53,7 +53,8 @@ NEW_MODULES = ("cli._driver", "cli._entry", "cli.simult_fit",
                "compat", "compat.emcee", "models.simple", "models.templates",
                "models.csi2016", "models.fixed_params", "cli.simple_tof",
                "cli.template_fit", "sampler.pt", "models.shifting_gaussian",
-               "cli.shifting_gaussian")
+               "cli.shifting_gaussian", "parallel", "parallel.mesh",
+               "parallel.distributed", "parallel.launch")
 
 
 def test_every_module_is_among_those_imported():
@@ -61,8 +62,8 @@ def test_every_module_is_among_those_imported():
     native codec's bindings (which build nothing at import), the gradient
     samplers, the optimisers, the post-processing modules (PPC, plotting,
     which imports no matplotlib until it draws, plot_chain, profiling, the
-    emcee shim), and parallel tempering with its shifting-Gaussian
-    study."""
+    emcee shim), parallel tempering with its shifting-Gaussian study, and
+    the walker sharding over torch.distributed ranks."""
     import pkgutil
 
     import mcmctoffitting_tpu_torch as pkg

@@ -2,9 +2,10 @@
 own, ported for completeness, against the JAX package's on the same
 numpy-seeded inputs (the CPU): ``delta_moment_histogram`` (an XLA one-hot
 there, plain torch here), ``linear_interp``, ``velocity_from_energy``,
-``BetheStopping.with_material`` and ``havar_stopping``; and the
-likelihood of the templates, ``template_gaussian_loglike``, with its
-``model < 1`` clamp."""
+``BetheStopping.with_material`` and ``havar_stopping``; the likelihood of
+the templates, ``template_gaussian_loglike``, with its ``model < 1``
+clamp; ``exgaussian_shape`` (the timing density on the device) and
+``bin_index`` (np.histogram's bin of each value)."""
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -15,12 +16,14 @@ from mcmctoffitting_tpu.ops import interp as jinterp
 from mcmctoffitting_tpu.ops import kinematics as jkin
 from mcmctoffitting_tpu.ops import likelihoods as jlike
 from mcmctoffitting_tpu.ops import stopping as jstop
+from mcmctoffitting_tpu.ops import timing as jtiming
 from mcmctoffitting_tpu_torch.constants import masses
 from mcmctoffitting_tpu_torch.ops import histogram as thist
 from mcmctoffitting_tpu_torch.ops import interp as tinterp
 from mcmctoffitting_tpu_torch.ops import kinematics as tkin
 from mcmctoffitting_tpu_torch.ops import likelihoods as tlike
 from mcmctoffitting_tpu_torch.ops import stopping as tstop
+from mcmctoffitting_tpu_torch.ops import timing as ttiming
 
 torch.set_num_threads(1)
 
@@ -114,3 +117,61 @@ def test_template_gaussian_loglike():
     assert np.array_equal(np.isfinite(got), np.isfinite(want))
     assert np.isneginf(got[2:]).all()
     np.testing.assert_allclose(got[:2], want[:2], rtol=1e-6)
+
+
+def test_exgaussian_shape():
+    """The JAX package's values on the grid of
+    ``tests/test_timing.py::test_exgaussian_shape_values`` (bin centres
+    over [ceil(-5 sigma), ceil(10 tau)], the early-time tail at ~1e-5 of
+    the peak included) and further out on both sides, within 1e-5
+    relative: the two erfc and exp implementations differ in the last
+    bits.  Normalised, within that test's own tolerance of the float64
+    oracle.  A float32 tensor in, a float32 tensor on its device out."""
+    from scipy.special import erf
+
+    sigma, tau = 1.1910, 1.0110
+    lo, hi = np.ceil(-5 * sigma), np.ceil(10 * tau)
+    centers = np.linspace(lo + 0.5, hi - 0.5, int(hi - lo))
+    grid = np.concatenate([np.linspace(-9.0, lo, 7), centers,
+                           np.linspace(hi, 25.0, 7)]).astype(np.float32)
+    got = ttiming.exgaussian_shape(torch.as_tensor(grid), sigma, tau)
+    assert got.dtype == torch.float32 and got.shape == grid.shape
+    want = np.asarray(jtiming.exgaussian_shape(jnp.asarray(grid), sigma,
+                                               tau))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0.0)
+    exp_arg = sigma ** 2 / (2 * tau ** 2) - centers / tau
+    erf_arg = (sigma ** 2 - centers * tau) / (np.sqrt(2) * sigma * tau)
+    oracle = np.exp(exp_arg) * (1 - erf(erf_arg))
+    vals = ttiming.exgaussian_shape(torch.as_tensor(centers), sigma,
+                                    tau).numpy()
+    np.testing.assert_allclose(vals / vals.sum(), oracle / oracle.sum(),
+                               rtol=1e-3, atol=1e-8)
+
+
+def test_bin_index():
+    """The JAX function's (index, in-range) on values inside, beyond and
+    at the edges of [lo, hi] (the interior float32 edges too), and
+    np.histogram's edge rules on the rest: v == lo in bin 0, v == hi in
+    the last bin, values outside, infinities and NaN not counted.  (At an
+    interior edge both packages bin by floor of the float32 scaled value,
+    which np.histogram's float64 edges may put one bin higher.)"""
+    rng = np.random.default_rng(4)
+    lo, hi, n_bins = -2.0, 3.0, 7
+    edges = np.linspace(lo, hi, n_bins + 1).astype(np.float32)
+    v = np.concatenate([rng.uniform(-4.0, 5.0, 500), edges,
+                        [lo, hi, -2.0000002, 3.0000002, np.nan, np.inf,
+                         -np.inf]]).astype(np.float32)
+    idx, in_range = thist.bin_index(torch.as_tensor(v), lo, hi, n_bins)
+    assert idx.dtype == torch.int32 and in_range.dtype == torch.bool
+    jidx, jin = jhist.bin_index(jnp.asarray(v), lo, hi, n_bins)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(in_range.numpy(), np.asarray(jin))
+    rest = ~np.isin(v, edges[1:-1])
+    counts = np.bincount(idx.numpy()[in_range.numpy() & rest],
+                         minlength=n_bins)
+    finite = v[rest & np.isfinite(v)]
+    np.testing.assert_array_equal(counts,
+                                  np.histogram(finite, n_bins, (lo, hi))[0])
+    assert idx[v == np.float32(lo)].eq(0).all()
+    assert idx[v == np.float32(hi)].eq(n_bins - 1).all()
+    assert not in_range[~np.isfinite(v)].any()

@@ -12,7 +12,11 @@ package and vs exact distributions.
 * the wrapper's forms: the seed as a pair of ints or as a two-word
   tensor, rates given once per walker with a run count, its refusals;
 * the forward's counts path draws every run from the walker's rates,
-  exactly as from the rates copied along the run axis.
+  exactly as from the rates copied along the run axis;
+* the counter offset of a shard: rows [r0, r0 + n) drawn with
+  ``offset = r0 R C`` (and a shard of every rung with ``blocks``) equal
+  those rows of the whole draw bit for bit; offset 0 is the plain draw;
+  the forward's and the log-prob's ``walker_offset`` carry it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -225,3 +229,78 @@ def test_counts_path_draws_each_run_from_the_walkers_rates():
     np.testing.assert_array_equal(grids, want)
     np.testing.assert_array_equal(e0_means, want_means)
     assert not torch.equal(grids[:, 0], grids[:, 1])   # runs draw apart
+
+
+@pytest.mark.parametrize("n_runs", [None, 3])
+def test_offset_draws_the_rows_of_the_whole_launch(n_runs):
+    """Rows [r0, r0 + n) of a (W, R, C) draw, drawn alone with offset =
+    r0 R C, equal those rows of the whole draw bit for bit (both seed
+    forms); offset 0 gives the draw without one."""
+    lam = _mixed_rates((12, 131), seed=3)
+    per_row = (n_runs or 1) * lam.shape[-1]
+    whole = poisson(lam, (13, 14), n_runs)
+    assert torch.equal(poisson(lam, (13, 14), n_runs, offset=0), whole)
+    words = torch.tensor([13, 14], dtype=torch.int64)
+    for r0, n in ((0, 5), (5, 7), (11, 1), (4, 4)):
+        part = lam[r0:r0 + n].contiguous()
+        for seed in ((13, 14), words):
+            got = poisson(part, seed, n_runs, offset=r0 * per_row)
+            np.testing.assert_array_equal(got, whole[r0:r0 + n])
+    assert not torch.equal(poisson(lam[5:], (13, 14), n_runs),
+                           whole[5:])        # without the offset: other rows
+
+
+def test_blocks_draw_a_shard_of_every_rung():
+    """A (T, n) tempered batch flattened rung-major: rank r's walkers [r m,
+    (r + 1) m) of every rung, drawn as one (T m) batch with offset r m E
+    and blocks (m E, n E), equal those rows of the whole draw."""
+    t, n, m, c = 4, 12, 3, 65
+    lam = _mixed_rates((t * n, c), seed=4)
+    whole = poisson(lam, (7, 9), n_runs=2).reshape(t, n, 2, c)
+    e = 2 * c
+    for r in range(n // m):
+        rows = lam.reshape(t, n, c)[:, r * m:(r + 1) * m].reshape(t * m, c)
+        got = poisson(rows.contiguous(), (7, 9), n_runs=2,
+                      offset=r * m * e, blocks=(m * e, n * e))
+        np.testing.assert_array_equal(
+            got.reshape(t, m, 2, c), whole[:, r * m:(r + 1) * m])
+    np.testing.assert_array_equal(
+        tp.counter_indices(6, 10, (2, 5)), [10, 11, 15, 16, 20, 21])
+    with pytest.raises(ValueError, match="offset"):
+        poisson(lam, (1, 2), offset=-1)
+    with pytest.raises(ValueError, match="block <= stride"):
+        poisson(lam, (1, 2), blocks=(5, 4))
+
+
+@pytest.mark.parametrize("sampling,bg", [("counts", False),
+                                         ("counts", True),
+                                         ("expected", True)])
+def test_walker_offset_through_the_log_prob(sampling, bg):
+    """JointFitProblem.log_prob of walkers [r0, r0 + n) with walker_offset
+    r0 equals those rows of the whole batch's log-prob on the same
+    generator state (simultFit counts; oneBD with its Poisson background,
+    also on 'expected', whose only draw is the background's)."""
+    from mcmctoffitting_tpu_torch.models import onebd as tonebd
+    from mcmctoffitting_tpu_torch.utils import data_io
+
+    if bg:
+        spec = tonebd.default_spec(8000, sampling=sampling, fine_grid=128)
+        problem = tonebd.OneBDProblem(spec, n_runs=3, likelihood="poisson",
+                                      device="cpu")
+        truth = data_io.ONEBD_TRUTH
+    else:
+        spec = tsimult.default_spec(8000, sampling=sampling, fine_grid=128)
+        problem = tsimult.SimultFitProblem(spec, n_runs=2,
+                                           likelihood="poisson", device="cpu")
+        truth = np.concatenate([tsimult.GUESS_SHARED, np.full(2, 5.0e4)])
+    assert problem.draws_by_row
+    observed = data_io.synthesize_observed(5, problem, truth)
+    logp = problem.make_log_prob_fn(observed)
+    thetas = problem.initial_walkers_from_observed(
+        torch.Generator().manual_seed(6), 12, observed)
+    whole = logp(thetas, torch.Generator().manual_seed(7))
+    assert torch.isfinite(whole).all()
+    for r0, n in ((0, 6), (6, 6), (3, 4)):
+        got = logp(thetas[r0:r0 + n], torch.Generator().manual_seed(7),
+                   walker_offset=r0)
+        np.testing.assert_array_equal(got, whole[r0:r0 + n])
