@@ -151,8 +151,9 @@ Then parallel tempering (before phase 11 too):
  22. (a) the tempered stretch and DE cores and the replica-exchange core
      at (20, 100, 3), the same draws on the card and the CPU: positions,
      log-likelihoods, log-priors, accept masks and swap counts equal; (b)
-     cli.shifting_gaussian at its defaults (ensemble 100 x 500, then PT
-     20 temperatures x 100 walkers, 1000 + 10000 steps thin 10): PT and
+     cli.shifting_gaussian at its defaults but the PT depth (ensemble 100
+     x 500, then PT 20 temperatures x 100 walkers, 500 + 5000 steps thin
+     10, half the defaults' 1000 + 10000): PT and
      ensemble walker-steps/s, every rung's swap acceptance in (0, 1), the
      cold medians of sigma and 5m + b near the truth, ln Z finite with an
      error below 1; (c) -model tof at full width (20 x 100 walkers, 2 runs,
@@ -182,6 +183,22 @@ Then walker sharding over torch.distributed ranks (before phase 22):
      unsharded sample_pt, contract A; (e) cli.simult_fit -mesh 2 on a
      one-GPU host: capped to one GPU, says so, and writes the -mesh 1
      chain byte for byte.
+Then posterior parity with the JAX package (before phase 23):
+ 24. (a) the same-theta density parity of five cases at full width
+     against the JAX package's values in perf/parity/ (made on the CPU by
+     perf/parity_reference.py; the corrected likelihood throughout):
+     simultFit counts, oneBD -hardcore counts, simultFit mc default, mc on
+     rk4 'taylor' (R = 16 evaluations at each of 48 thetas: the JAX tool's
+     spread < max(5 noise, 1 nat) and chi2/dof <= 1 + 4 sqrt(2 / 47)) and
+     'expected' (centred spread < 0.25 nats, gradient relative L2 < 0.25
+     at every theta and < 0.01 in the median); K1, K2, K4 and K2's
+     backward launched as each path says; (b) the port's DE chains of the
+     two counts cases at the JAX chains' walkers and steps, their dz
+     tables against the JAX chain's summary: simultFit's gated (worst
+     |dz| < 0.25 and worst |z_se| < 4); oneBD's |dz| < 0.25 gated, its
+     z_se printed as the known fault of its case (ROADMAP Queue 3: its
+     ensemble accepts ~0.1% of its moves in both packages, and its tau is
+     too long for the chain to estimate).
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
@@ -226,7 +243,7 @@ from mcmctoffitting_tpu_torch.ops.cuda_tof import (
 from mcmctoffitting_tpu_torch.parallel import distributed as parallel_dist
 from mcmctoffitting_tpu_torch.parallel import launch as parallel_launch
 from mcmctoffitting_tpu_torch.parallel import mesh as parallel_mesh
-from mcmctoffitting_tpu_torch.utils import chain_io, data_io, devtime
+from mcmctoffitting_tpu_torch.utils import chain_io, data_io, devtime, parity
 from mcmctoffitting_tpu_torch.utils import ppc as ppc_mod
 
 N_WALKERS, N_RUNS, N_DRAWS = 256, 4, 200_000
@@ -2034,6 +2051,128 @@ def phase_csi2016(dev, smi, tmp, rate, launches):
             "k4": k4}
 
 
+# --- phase 24: posterior parity with the JAX package ----------------------
+
+PARITY_DIR = Path(__file__).resolve().parent / "perf" / "parity"
+# chains whose z_se gate is out of phase 24 (ROADMAP Queue 3, with the
+# tables): the phase gates their |dz| alone and prints their table as
+# that fault
+PARITY_CHAIN_FAULTS = {
+    "onebd_hardcore_counts": (
+        "a fault of the case, not of the port (ROADMAP Queue 3): the "
+        "Poisson background drawn per evaluation makes the log-prob's "
+        "noise ~11 nats, the DE ensemble accepts ~0.1% of its moves in "
+        "both packages, and its tau (~1,000 steps) is too long for the "
+        "chain's 7,600 main steps to estimate, so median_se understates "
+        "the medians' spread; the JAX package's own chains of the case "
+        "fail z_se against its reference too"),
+}
+
+
+def parity_launches(name, used, label, evals=1):
+    """The case's kernels (``parity.CASES``) launched, the others not; K2
+    at least once per evaluation (``evals``: the chain's, its initial
+    refreshes aside), and oneBD counts launches K1 twice per evaluation
+    (cell counts and background)."""
+    on_path = parity.CASES[name]["kernels"]
+    require(used["tof_hist"] >= evals,
+            f"{label}: K2 once per evaluation on {name}'s path ({used})")
+    for kernel, n in used.items():
+        if kernel in on_path:
+            require(n > 0, f"{label}: {kernel} launched on {name}'s path")
+        else:
+            require(n == 0, f"{label}: {kernel} not launched on {name}'s "
+                    f"path ({n})")
+    if name == "onebd_hardcore_counts":
+        require(used["poisson"] == 2 * used["tof_hist"],
+                f"{label}: K1 twice per oneBD evaluation ({used})")
+    elif "poisson" in on_path:
+        require(used["poisson"] == used["tof_hist"],
+                f"{label}: K1 once per evaluation ({used})")
+
+
+def phase_parity(dev, smi, launches):
+    """24a: the same-theta density parity of the five cases against the
+    JAX package's values (perf/parity/<case>.npz, made on the CPU by
+    perf/parity_reference.py); 24b: the port's DE chains of the two counts
+    cases at the JAX chains' walkers and steps, gated by dz and z_se
+    (oneBD's by |dz| alone: ``PARITY_CHAIN_FAULTS``).  A gate that does
+    not pass fails the script."""
+    out = {}
+    for name in parity.CASES:
+        ref = parity.load_reference(PARITY_DIR / f"{name}.npz")
+        problem = parity.build_problem(ref.meta, dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        dens = parity.density_check(ref, problem, seed=24)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        used = read_counts()
+        parity_launches(name, used, "phase 24a")
+        launches[f"parity_{name}"] = used
+        row = {k: v for k, v in dens.items() if not k.startswith("port_")}
+        row["seconds"] = seconds
+        if "chi2_dof" in dens:
+            gates = (f"spread {dens['spread_nats']:.4f} nats (< "
+                     f"{dens['spread_gate_nats']:.4f}), chi2/dof "
+                     f"{dens['chi2_dof']:.4f} (<= {dens['chi2_dof_max']:.4f})"
+                     f", noise {dens['noise_nats']:.4f}")
+        else:
+            gates = (f"spread {dens['spread_nats']:.4f} nats (< "
+                     f"{dens['spread_tol_nats']}), gradient rel L2 max "
+                     f"{dens['grad_rel_l2_max']:.3e} (< {dens['grad_tol']})"
+                     f", median {dens['grad_rel_l2_median']:.3e} (< "
+                     f"{dens['grad_median_tol']})")
+        log(f"phase 24a ({smi}): {name} at {dens['n_thetas']} JAX thetas: "
+            f"{gates}, offset {dens['mean_offset_nats']:+.3f} nats, "
+            f"correlations {dens['correlations']}, {seconds:.2f} s, "
+            f"launches {used} -> {dens['verdict']}")
+        require(dens["verdict"] == "PASS",
+                f"phase 24a: {name} density parity with the JAX package")
+        out[name] = {"density": row}
+        if name in parity.DE_CHAIN_CASES:
+            reset_counts()
+            t0 = time.perf_counter()
+            pos, acc = parity.run_port_chain(ref, problem, seed=24)
+            seconds = time.perf_counter() - t0
+            used = read_counts()
+            ch = ref.meta["chain"]
+            parity_launches(name, used, "phase 24b",
+                            evals=2 * (ch["burnin"] + ch["main"]) + 1)
+            launches[f"parity_chain_{name}"] = used
+            table = parity.dz_table(ch["summary"], pos, ref.names)
+            table.update(acceptance=acc, ref_acceptance=ch["acceptance"],
+                         seconds=seconds, walkers=ch["walkers"],
+                         burnin=ch["burnin"], main=ch["main"])
+            log(f"phase 24b ({smi}): {name} DE chain, {ch['walkers']} "
+                f"walkers x {ch['burnin']} + {ch['main']} steps: worst "
+                f"|dz| {table['worst_dz']:.4f}, worst |z_se| "
+                f"{table['worst_z_se']:.3f}, min ESS port "
+                f"{table['min_port_ess']:.0f} / JAX "
+                f"{table['min_ref_ess']:.0f}, acceptance {acc:.3f} / "
+                f"{ch['acceptance']:.3f}, {seconds:.1f} s, launches {used} "
+                f"-> {table['verdict']}")
+            for line in parity.format_dz(table).splitlines():
+                log(f"  {line}")
+            fault = PARITY_CHAIN_FAULTS.get(name)
+            if fault:
+                log(f"phase 24b: {name}: {table['verdict']} by the tool's "
+                    f"gate; |dz| < {parity.DZ_MAX} gated, z_se not: "
+                    f"{fault}")
+                table["z_se_not_gated"] = fault
+                require(table["worst_dz"] < parity.DZ_MAX,
+                        f"phase 24b: {name} chain |dz| < {parity.DZ_MAX} "
+                        f"against the JAX package")
+            else:
+                require(table["verdict"] == "PASS",
+                        f"phase 24b: {name} chain parity with the JAX "
+                        f"package")
+            out[name]["chain"] = table
+        del problem
+        torch.cuda.empty_cache()
+    return out
+
+
 # --- phase 23: walker sharding over torch.distributed ranks ---------------
 
 SHARD_STEPS = 20                     # 23c: DE steps of the two-rank fit
@@ -2293,6 +2432,9 @@ def phase_sharding(dev, smi, tmp, rates_w, k1_phase6_ms):
 # --- phase 22: parallel tempering -----------------------------------------
 
 PT_T, PT_W = 20, 100                 # the CLI's -nTemps, -ptWalkers
+# 22b: the analytic branch's PT burn-in and steps, half the CLI's defaults
+# (1000 + 10000) to keep the script's time
+PT_SG_BURN, PT_SG_STEPS = 500, 5000
 PT_TOF_BURN, PT_TOF_STEPS = 20, 60   # -model tof at full width, depth cut
 PT_PROFILE_STEPS = 3
 
@@ -2420,19 +2562,21 @@ def k12_at_pt_shapes(dev, smi, forward, thetas, n_runs):
 
 def phase_pt(dev, smi, tmp, rate, launches):
     """Phase 22: parallel tempering.  (a) the cores card vs CPU; (b)
-    cli.shifting_gaussian at its defaults; (c) -model tof at full width;
+    cli.shifting_gaussian at its defaults but the PT depth; (c) -model tof at full width;
     (d) compat.emcee.PTSampler on the card."""
     out = {"cores": phase_pt_cores(dev)}
 
-    label = "phase 22b (shifting_gaussian, analytic, defaults)"
+    label = "phase 22b (shifting_gaussian, analytic, PT depth cut)"
     where = tmp / "pt_analytic"
     where.mkdir()
-    res, _, _, used = run_cli(cli_sg, [], where, label)
+    res, _, _, used = run_cli(cli_sg, ["-ptBurnin", str(PT_SG_BURN),
+                                       "-ptSteps", str(PT_SG_STEPS)],
+                              where, label)
     swaps = res["pt_swap_acceptance"]
     sigma, mid = res["pt"]["sigma"], 5 * res["pt"]["m"] + res["pt"]["b"]
     ln_z, d_ln_z = res["pt_ln_evidence"]
-    log(f"{label} ({smi}): {PT_T} temps x {PT_W} walkers, 1000 + 10000 "
-        f"steps thin 10: {res['pt_walker_steps_per_sec']:.1f} PT "
+    log(f"{label} ({smi}): {PT_T} temps x {PT_W} walkers, {PT_SG_BURN} + "
+        f"{PT_SG_STEPS} steps thin 10: {res['pt_walker_steps_per_sec']:.1f} PT "
         f"walker-steps/s; ensemble (100 walkers x 500 steps) "
         f"{res['ensemble_walker_steps_per_sec']:.1f} walker-steps/s; swap "
         f"acceptance per rung {np.round(swaps, 4).tolist()}; ln Z = "
@@ -2873,6 +3017,11 @@ def main():
         torch.cuda.empty_cache()
         csi_out = phase_csi2016(dev, smi, Path(tmp), rate, launches)
 
+    # phase 24: posterior parity with the JAX package (before phase 11
+    # and phase 22's profiler too: its chains are host-bound)
+    torch.cuda.empty_cache()
+    parity_out = phase_parity(dev, smi, launches)
+
     # phase 23: walker sharding over torch.distributed ranks (before phase
     # 11 too, and before phase 22's profiler: its one-process reference
     # fit is timed)
@@ -2969,6 +3118,11 @@ def main():
                                          *PPC_RUNS, *SIMPLE_RUNS,
                                          "template_fit", "ppc_csi2016",
                                          "pt_analytic", "pt_tof")},
+            # phase 24: launches on each parity case's path (density, then
+            # the counts chains)
+            "launches_parity": {
+                case: launches[case][name] for case in launches
+                if case.startswith("parity_")},
             # the remaining forward models (phases 19-21): each kernel at
             # its shapes there, with its own error, times and bound
             **extra_shapes.get(name, {})})
@@ -2993,7 +3147,8 @@ def main():
         "gradient_evaluations_cli": {
             run: launches[f"cli_{run}"]["gradient_evaluations"]
             for run in GRAD_RUNS},
-        "gradient_gpu_vs_cpu_rel_l2": grad_rel})
+        "gradient_gpu_vs_cpu_rel_l2": grad_rel,
+        "launches_parity": launches["parity_simult_expected"]["K2-bwd"]})
     # phase 18d, last: -profile in a subprocess of its own
     profile_kernels = phase_profile()
     print(json.dumps({"kernels": kernels, "walker_steps_per_s": rate,
@@ -3012,7 +3167,8 @@ def main():
                       "parallel_tempering": {
                           k: v for k, v in pt_out.items() if k != "k12"},
                       "sharding": {k: v for k, v in shard_out.items()
-                                   if k != "k1"}}))
+                                   if k != "k1"},
+                      "posterior_parity": parity_out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .fixed_point import channel_shifts, dequantise, quantise
+from .pdfs import ndtr
 from .rowwise import rowwise_matmul
 
 # bounds of the fine-cell channels (1, t, t^2, t^3) over [e0_lo, e0_hi]
@@ -319,9 +320,9 @@ def _lognorm_w_machinery(beam_e, e_loss, scale, s):
 
     def partial(j, lo, hi):
         lo_c = torch.clamp_min(lo, 1e-30)
-        top = 1.0 if hi is None else torch.special.ndtr(
+        top = 1.0 if hi is None else ndtr(
             torch.log(torch.clamp_min(hi, 1e-30)) / safe_s - j * safe_s)
-        amt = top - torch.special.ndtr(torch.log(lo_c) / safe_s - j * safe_s)
+        amt = top - ndtr(torch.log(lo_c) / safe_s - j * safe_s)
         return (torch.exp(0.5 * j * j * safe_s * safe_s)
                 * relu_split(amt))
 
@@ -360,7 +361,7 @@ def expected_moments(grid: E0Grid, beam_e, e_loss, scale, s,
     n_rows = 4 if closure == "exact" else 2
     js = grid.js[:n_rows]
     logw = torch.log(torch.clamp_min(w_edges, 1e-30)) / safe_s[col]
-    nd = torch.special.ndtr(logw[..., None, :]
+    nd = ndtr(logw[..., None, :]
                             - js[:, None] * safe_s[..., None, None])
     amt = relu_split(nd[..., :-1] - nd[..., 1:])              # (..., n, F)
     pm = torch.exp(0.5 * js * js * safe_s[col] * safe_s[col])[..., None] * amt
@@ -547,10 +548,10 @@ def expected_e0_mean(beam_e, e_loss, scale, s, truncated: bool):
     if truncated:
         w_max = torch.clamp_min((beam_e - e_loss) / safe_scale, 1e-30)
         zmax = torch.log(w_max) / safe_s
-        norm = torch.special.ndtr(zmax)
+        norm = ndtr(zmax)
         norm = torch.where(valid & (norm > 0), norm, 1.0)
         mean_w = (torch.exp(0.5 * safe_s * safe_s)
-                  * torch.special.ndtr(zmax - safe_s)) / norm
+                  * ndtr(zmax - safe_s)) / norm
     else:
         mean_w = torch.exp(0.5 * safe_s * safe_s)
     return beam_e - e_loss - safe_scale * mean_w

@@ -4,8 +4,9 @@ same Poisson counts injected into both.
 
 Tolerance of the moment channels: rtol 1e-5 plus an absolute term of
 2^-20 x n_samples.  Each moment is a draw count times a difference of two
-ndtr values in [0, 1]; torch.special.ndtr and jax.scipy.special.ndtr are
-both float32 but differ by an ulp or two (2^-24 near 1), and the t^k
+ndtr values in [0, 1]; the port's ndtr (``ops/pdfs.py``) and
+jax.scipy.special.ndtr are both float32 but differ by an ulp or two
+(2^-24 near 1), and the t^k
 channels combine the partial moments with binomial weights that cancel,
 so the agreement is absolute at the ndtr's resolution, not relative to a
 small channel value.  Measured worst error: 0.3 of that bound.
@@ -17,9 +18,11 @@ import pytest
 import torch
 
 import mcmctoffitting_tpu.ops.poisson as jpoisson
+from mcmctoffitting_tpu.models import onebd as jonebd
 from mcmctoffitting_tpu.models import simult as jsimult
 from mcmctoffitting_tpu.ops import e0grid as je0
 from mcmctoffitting_tpu_torch.ops import e0grid as te0
+from mcmctoffitting_tpu_torch.ops import pdfs as tpdfs
 
 torch.set_num_threads(1)
 
@@ -58,6 +61,39 @@ def test_expected_moments(tables, truncated, closure):
     assert got_m.shape == (8, 4, tab.n_fine)
     np.testing.assert_allclose(got_m.numpy(), want_m, rtol=1e-5, atol=ATOL)
     np.testing.assert_allclose(got_e0.numpy(), want_e0, rtol=1e-5)
+
+
+def test_ndtr_holds_both_tails():
+    """The port's ndtr is jax.scipy.special.ndtr's formula: within 1e-5
+    relative of it from -12 to 12 (erfc in the tails).  torch.special.ndtr
+    is 0 below x ~ -5.4 in float32."""
+    x = np.linspace(-12.0, 12.0, 4801).astype(np.float32)
+    want = np.asarray(jax.scipy.special.ndtr(jnp.asarray(x)))
+    got = tpdfs.ndtr(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0.0)
+    assert got[x < -6].min() > 0.0
+
+
+def test_expected_moments_of_a_wide_lognormal():
+    """oneBD posterior thetas with a wide energy-loss law (s 1.5-2.6, the
+    ridge of the -hardcore counts fit): the ndtr argument of the t^3
+    channel, ln(w) / s - 3 s, lies in the far lower tail.  With
+    torch.special.ndtr those channels were off by ~3,000 x the tolerance
+    (the grid went negative, the log-prob ~40 nats low at s = 2.23);
+    the tolerance of test_expected_moments holds."""
+    tab = jonebd.default_spec(N_SAMPLES, sampling="counts",
+                              fine_grid=128).e0_grid_table
+    grid = te0.E0Grid(tab, device="cpu")
+    th = np.array([[2490.0, 1336.2, 27.9, 2.228],
+                   [2490.0, 1338.2, 29.7, 1.959],
+                   [2490.0, 1300.0, 40.0, 1.5],
+                   [2490.0, 1250.0, 30.0, 2.6]], np.float32)
+    fn = jax.jit(jax.vmap(lambda p: je0.expected_moments(
+        tab, p[0], p[1], p[2], p[3], N_SAMPLES, False, "exact")))
+    want = np.asarray(fn(jnp.asarray(th))[0])
+    got = te0.expected_moments(grid, *_split(th), N_SAMPLES, False,
+                               "exact")[0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=ATOL)
 
 
 @pytest.mark.parametrize("truncated", [True, False])

@@ -54,7 +54,7 @@ NEW_MODULES = ("cli._driver", "cli._entry", "cli.simult_fit",
                "models.csi2016", "models.fixed_params", "cli.simple_tof",
                "cli.template_fit", "sampler.pt", "models.shifting_gaussian",
                "cli.shifting_gaussian", "parallel", "parallel.mesh",
-               "parallel.distributed", "parallel.launch")
+               "parallel.distributed", "parallel.launch", "utils.parity")
 
 
 def test_every_module_is_among_those_imported():
@@ -63,7 +63,8 @@ def test_every_module_is_among_those_imported():
     samplers, the optimisers, the post-processing modules (PPC, plotting,
     which imports no matplotlib until it draws, plot_chain, profiling, the
     emcee shim), parallel tempering with its shifting-Gaussian study, and
-    the walker sharding over torch.distributed ranks."""
+    the walker sharding over torch.distributed ranks, and the posterior
+    parity protocols."""
     import pkgutil
 
     import mcmctoffitting_tpu_torch as pkg
@@ -264,7 +265,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("where", ["mcmctoffitting_tpu_torch",
-                                   "chip_smoke.py"])
+                                   "chip_smoke.py",
+                                   "perf/posterior_parity.py"])
 def test_no_jax_import_in_sources(where):
     paths = ([REPO / where] if where.endswith(".py")
              else sorted((REPO / where).rglob("*.py")))
@@ -279,6 +281,20 @@ def test_chip_smoke_imports_without_the_jax_package():
                 "sys.modules['mcmctoffitting_tpu'] = None; "
                 "import runpy; runpy.run_path('chip_smoke.py', "
                 "run_name='not_main'); print('ok')")
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
+def test_posterior_parity_script_imports_without_the_jax_package():
+    """The card's side of the posterior parity (the card's machine has no
+    jax) imports with jax and the JAX package blocked, and loads neither."""
+    proc = _run("import sys; sys.modules['jax'] = None; "
+                "sys.modules['mcmctoffitting_tpu'] = None; "
+                "import runpy; runpy.run_path('perf/posterior_parity.py', "
+                "run_name='not_main'); "
+                "loaded = [m for m, mod in sys.modules.items() if mod is not "
+                "None and m.split('.')[0] in ('jax', 'jaxlib', "
+                "'mcmctoffitting_tpu')]; "
+                "assert not loaded, loaded; print('ok')")
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
 
 
