@@ -86,9 +86,11 @@ Phases (any failure raises; the exit code is then non-zero):
      TofHistSegments) vs the float64 gather of the cotangent at each
      sample's bin and vs the autograd of the plain version, at simultFit's
      (256, 4, 10, 50) lattice with K = 10 and oneBD hardcore's (256, 3, 20,
-     400) with K = 1, each gradient within 1e-6 x sum_k |zw| x max|gbar|,
-     the same bits on a second call, the np.histogram edge cases exact;
-     its device time, bound and enqueue beside K2 forward's;
+     400) with K = 1 (each a kernel with K fixed at compile time), and at
+     simultFit's lattice with its first three segments (the general
+     kernel), each gradient within 1e-6 x sum_k |zw| x max|gbar|, the same
+     bits on a second call, the np.histogram edge cases exact; its device
+     time, bound and enqueue beside K2 forward's, and which kernel served;
  16. the gradient of the differentiable log-prob ('expected', corrected
      likelihood, no rint; oneBD with the background's expectation) on 8
      chains at the fit's initial walkers, the card against the CPU:
@@ -238,8 +240,8 @@ from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
 from mcmctoffitting_tpu_torch.ops import e0grid, stopping
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import philox_cuda, poisson
 from mcmctoffitting_tpu_torch.ops.cuda_tof import (
-    tof_hist_segments, tof_hist_segments_backward, tof_hist_segments_bwd_plain,
-    tof_hist_segments_plain)
+    tof_hist_backward_variant, tof_hist_segments, tof_hist_segments_backward,
+    tof_hist_segments_bwd_plain, tof_hist_segments_plain)
 from mcmctoffitting_tpu_torch.parallel import distributed as parallel_dist
 from mcmctoffitting_tpu_torch.parallel import launch as parallel_launch
 from mcmctoffitting_tpu_torch.parallel import mesh as parallel_mesh
@@ -1075,8 +1077,10 @@ def k2_in_window(base, zt, win):
 
 
 def phase_tof_backward(dev, smi, base_s, draws_s, fwd_s):
-    """Phase 15: K2's backward at both fits' lattices (256 walkers).
-    Returns the kernels line's entry."""
+    """Phase 15: K2's backward at both fits' lattices (256 walkers), each
+    served by its kernel with K fixed at compile time (K = 10, K = 1), and
+    the general kernel at simultFit's lattice with its first three
+    segments (K = 3).  Returns the kernels line's entry."""
     spec_hc = onebd.default_spec(N_DRAWS, hardcore=True, sampling="counts")
     prob_hc = onebd_problem(spec_hc, "poisson", dev)
     obs = data_io.synthesize_observed(9, prob_hc, data_io.ONEBD_TRUTH)
@@ -1086,16 +1090,23 @@ def phase_tof_backward(dev, smi, base_s, draws_s, fwd_s):
     grids, e0_means = fwd_o.grid_and_mean(prob_hc.split_theta(p0)[0],
                                           torch.Generator().manual_seed(3))
     base_o, draws_o = fwd_o.lattice(grids, e0_means)
-    cases = {"simult": (base_s, draws_s, fwd_s),
-             "onebd_hardcore": (base_o, draws_o, fwd_o)}
+    cases = {"simult": (base_s, draws_s, fwd_s.zt, fwd_s.zw, fwd_s.win),
+             "onebd_hardcore": (base_o, draws_o, fwd_o.zt, fwd_o.zw,
+                                fwd_o.win),
+             "general_k3": (base_s, draws_s, fwd_s.zt[:, :3].contiguous(),
+                            fwd_s.zw[:, :3].contiguous(), fwd_s.win)}
     rng = np.random.default_rng(15)
     floor_ms = devtime.launch_floor_ms(dev)
     out = {}
-    for name, (base, draws, fwd) in cases.items():
-        zt, zw, win = fwd.zt, fwd.zw, fwd.win
+    for name, (base, draws, zt, zw, win) in cases.items():
+        variant = tof_hist_backward_variant(zt.shape[1])
+        require(variant == {10: "K = 10", 1: "K = 1"}.get(zt.shape[1],
+                                                           "general"),
+                f"phase 15 ({name}): K2 backward variant {variant}")
         gbar = torch.as_tensor(rng.standard_normal(
             base.shape[:-2] + (win.n_pad,)).astype(np.float32), device=dev)
-        label = f"phase 15 ({name}, {tuple(base.shape)}, K = {zt.shape[1]})"
+        label = (f"phase 15 ({name}, {tuple(base.shape)}, K = "
+                 f"{zt.shape[1]}, kernel {variant})")
         got = tof_hist_segments_backward(gbar, base, zt, zw, win)
         again = tof_hist_segments_backward(gbar, base, zt, zw, win)
         exact = tof_hist_segments_bwd_plain(gbar, base, zt, zw, win,
@@ -1163,7 +1174,7 @@ def phase_tof_backward(dev, smi, base_s, draws_s, fwd_s):
             f"{floor_ms:.5f} ms; in-window share "
             f"{n_in / (base.numel() * zt.shape[1]):.4f}")
         out[name] = {"shape": list(base.shape), "k": zt.shape[1],
-                     "ms": ms["bwd"], "plain_ms": plain_ms,
+                     "variant": variant, "ms": ms["bwd"], "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None, "enqueue_us": enq["bwd"],
                      "launch_floor_ms": floor_ms,
@@ -3140,8 +3151,10 @@ def main():
         "bound_by": bwd["bound_by"], "library_ms": None,
         "enqueue_us": bwd["enqueue_us"],
         "launch_floor_ms": bwd["launch_floor_ms"],
-        "shape": bwd["shape"], "forward_ms": bwd["forward_ms"],
+        "shape": bwd["shape"], "variant": bwd["variant"],
+        "forward_ms": bwd["forward_ms"],
         "at_onebd_shapes": k2_bwd["onebd_hardcore"],
+        "at_general_k": k2_bwd["general_k3"],
         "launches_gradient_cli": {run: launches[f"cli_{run}"]["K2-bwd"]
                                   for run in GRAD_RUNS},
         "gradient_evaluations_cli": {

@@ -97,6 +97,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cfloat>
 
 #include "device_guard.cuh"
@@ -138,13 +139,24 @@ __device__ __forceinline__ int floor_to_int(float x) {   // 0 <= x < 2^22
 // it: counted only when lo <= v <= hi (NaN fails both tests), then
 // min(floor((v - lo) * scale), n_bins - 1), so v == hi lands in the last
 // bin.  In the window 0 <= (v - lo) * scale <= n_bins (1 + 2^-23), far
-// below 2^22, where floor_to_int is exact.  Both forward kernels and the
-// backward kernel bin through this one function, so the backward gathers
-// the cotangent of the very bin the forward added each sample to.
+// below 2^22, where floor_to_int is exact.  Both forward kernels bin
+// through this one function, and the backward kernel through
+// tof_bin_clamped, the same arithmetic, so the backward gathers the
+// cotangent of the very bin the forward added each sample to.
 __device__ __forceinline__ int tof_bin(float v, float lo, float hi,
                                        float scale, int nb1) {
   if (!(v >= lo && v <= hi)) return -1;
   return min(floor_to_int((v - lo) * scale), nb1);
+}
+
+// tof_bin for a sample in the window; for any other (NaN too) some bin in
+// [0, nb1], where a gather stays in bounds (its term is then dropped).  In
+// the window floor_to_int is >= 0, so the unsigned min is tof_bin's.
+__device__ __forceinline__ int tof_bin_clamped(float v, float lo,
+                                               float scale, int nb1) {
+  return static_cast<int>(
+      min(static_cast<unsigned>(floor_to_int((v - lo) * scale)),
+          static_cast<unsigned>(nb1)));
 }
 constexpr int kGeneralThreads = 256;
 constexpr size_t kSmemNoOptIn = 48 * 1024;
@@ -297,18 +309,119 @@ __global__ void tof_hist_general_kernel(
   for (int j = threadIdx.x; j < n_pad; j += blockDim.x) row_out[j] = hist[j];
 }
 
-// The backward of the histogram (the custom VJP's _fn_bwd): the output is
-// linear in the draws, and a sample's bin has zero gradient almost
-// everywhere, so
+// The backward of the histogram, kernel tof_hist_bwd.
+//
+// Replaces the custom VJP's backward of the TPU kernel,
+// mcmctoffitting_tpu/ops/pallas_tof.py::_fn_bwd (:246, plain JAX).  Plain
+// PyTorch version: ops/cuda_tof.py::tof_hist_segments_bwd_plain.  The
+// output is linear in the draws, and a sample's bin has zero gradient
+// almost everywhere, so
 //   grad_draws[m, b] = sum_k zw[b, k] * gbar[bin(base[m, b] + zt[b, k])]
-// over the in-window samples, and nothing flows to base, zt or zw.  One
-// block per (walker, run) row, the row's cotangent staged in shared memory
-// (n_pad floats; read from device memory where a window is too wide for a
-// block), one thread per lattice cell summing its K segments in order in
-// float32.  A gather: no atomics, the same bits on every call.  Bound by
-// bytes: base and the cotangent read once, the gradient written once (the
-// tables stay in L1).
-__global__ void __launch_bounds__(kMaxThreads)
+// over the in-window samples, and nothing flows to base, zt or zw.
+//
+// What bounds it on an H100: bytes (base and the cotangent read once, the
+// gradient written once; the tables are a few KB): 0.00131 ms at
+// simultFit's (256, 4, 10, 50), K = 10, 0.01470 ms at oneBD's (256, 3,
+// 20, 400), K = 1, and 0.00460 ms at the templates' (32, 4, 100, 150),
+// K = 1.  At K = 10 instruction issue comes first: 12 SASS instructions
+// a sample (588 after the barrier for a thread's 50; the addition, two
+// compares, the bin's subtraction, scaling, floor and clamp, the gather's
+// address and load, the product and the sum), 5.1M samples, ~2 us on 132
+// SMs, above the 0.80 us a launch takes between two dependent kernels.
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (device times of a
+// replayed CUDA graph, the designs in turns in one call;
+// perf/k2_bwd_parent_check.py, perf/k2_bwd_designs.py), at the three
+// shapes in that order, in ms:
+//   * the first design (one block of up to 512 threads a row, one thread
+//     a cell, K a run-time loop bound, the cotangent staged before base
+//     was read): 0.00853 / 0.02808 / 0.01096.  1,024 blocks of 512
+//     threads ran as two waves, each block a chain of round trips
+//     (window, staged cotangent, barrier, base, K dependent loads of the
+//     tables, store); 128 rows, one block each, left the card idle.
+//   * this design: 0.00462 / 0.01831 / 0.00530, the same bits.  A device
+//     copy of base into a tensor of its shape, in turns with it:
+//     0.00155 / 0.01625 / 0.00341.
+//   * its variants (the faster of two passes): the cotangent staged by
+//     plain loads 0.00480 / 0.01799 (0.01835 in the other pass) /
+//     0.00536; gathered through L1 without staging 0.00581 / 0.02236 /
+//     0.00602; each sample's gather under its own branch (nvcc then
+//     rebuilds the shared window's base at every sample) 0.00506 /
+//     0.01883 / 0.00552; the term chosen by a select instead of a
+//     predicated sum 0.00486 at K = 10; the shared array indexed instead
+//     of a volatile ld.shared 0.00483; K = 10 with two or ten cells a
+//     thread 0.00546, 0.00535; K = 1 with four or sixteen 0.02007 /
+//     0.00558, 0.01873 / 0.00545; K = 1 held to 32 registers (spills)
+//     0.02312 / 0.00697; blocks of 64 or 32 threads 0.00472 / 0.01837 /
+//     0.00556, 0.00489 / 0.02019 / 0.00642; the general kernel for every
+//     K 0.00547 / 0.02039 / 0.00584.
+//
+// Design (tof_hist_bwd_kernel<K, STAGE>):
+//   * Work items are (row, column b, group of m): a thread takes up to
+//     bwd_cells(K) cells of one column, m = m0 .. m0 + c - 1, so it reads
+//     the column's K values of zt and zw once for all of them.  Items are
+//     numbered row-major over the whole launch and a block takes 128 in a
+//     row, so no lane idles at the end of a row: the K = 10 lattice is 800
+//     blocks, one wave at 64 registers a thread.  Neighbouring lanes take
+//     neighbouring columns: every load and store of base and grad is
+//     coalesced.
+//   * Everything that does not need the cotangent is asked for first: the
+//     window constants, the thread's c values of base and, with K fixed at
+//     compile time (K = 10, K = 1), its 2K table values.  Only then are the
+//     block's cotangent rows (one to three; contiguous in gbar) copied to
+//     shared memory with cp.async (4-byte copies: a row of 70 bins is 280
+//     bytes, so most rows start off the 16-byte alignment a bulk copy
+//     needs), and waited for.  The two round trips to memory overlap.
+//   * With K fixed the sample loop is unrolled, c x K independent bins and
+//     gathers.  Any other K takes the general kernel (K = 0), a run-time
+//     loop over the segments with the tables read in it.  The C library
+//     chooses (mcmctof_tof_hist_bwd_plan reports which).
+//   * No branch a sample: every sample gathers, by a volatile ld.shared,
+//     at tof_bin_clamped (tof_bin's bin in the window, a bin in bounds
+//     outside it), and an in-window one adds its term under a predicate.
+//   * Each cell still sums its K terms in float32 in the order k = 0 ..
+//     K - 1, each at the bin tof_bin gives, and -fmad=false keeps the
+//     product and the sum two roundings: the output equals the first
+//     design's bit for bit.  A gather: no atomics, the same bits on every
+//     call.
+//   * A window too wide to stage (the block's rows above the 226 KB a
+//     block can have) gathers from device memory through L1 (STAGE false;
+//     at K = 10 that kernel spills 28 bytes at 64 registers).
+// Launches of up to 2^32 work items (the range of FastDiv).
+constexpr int kBwdThreads = 128;
+constexpr int kBwdBlocksPerSm = 8;   // 64 registers a thread at most
+
+// Cells of one column a thread takes at most, by the K it is compiled for
+// (0: any K)
+__host__ __device__ constexpr int bwd_cells(int k) {
+  return k == 10 ? 5 : k == 1 ? 8 : 4;
+}
+
+// A 4-byte copy from device to shared memory that does not hold the thread
+// (cp.async), and the wait for all of a thread's copies
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A float from shared memory at a 32-bit shared-window address.  Volatile:
+// nvcc neither moves it above the barrier nor sinks it into a branch.
+// Indexed as an array whose element is then used under a condition, the
+// load went into a branch of its own with the shared window's base built
+// anew in it (BSSY, S2UR SR_CgaCtaId, ULEA, BSYNC) at every sample.
+__device__ __forceinline__ float load_shared(unsigned addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+template <int K, bool STAGE>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
     tof_hist_bwd_kernel(const float* __restrict__ gbar,
                         const float* __restrict__ base,
                         const float* __restrict__ zt_t,
@@ -318,35 +431,95 @@ __global__ void __launch_bounds__(kMaxThreads)
                         const float* __restrict__ win_scale,
                         const int* __restrict__ win_nb1,
                         float* __restrict__ grad, const FastDiv runs,
-                        int n_cells, const FastDiv ed, int n_seg, int n_pad,
-                        bool stage) {
+                        const FastDiv items, const FastDiv ed, int n_x,
+                        int cells, int n_seg, int n_pad, unsigned n_total) {
+  constexpr int C = bwd_cells(K);
   extern __shared__ float s_g[];
+  const unsigned first = blockIdx.x * kBwdThreads;
+  const unsigned end = min(first + kBwdThreads, n_total);
+  // threads past the last item repeat it: in bounds, and never stored
+  const unsigned at = min(first + threadIdx.x, end - 1);
+  const unsigned row = items.div(at);
+  const unsigned item = at - row * items.d;
+  const unsigned group = ed.div(item);
+  const int b = static_cast<int>(item - group * ed.d);
   const int n_ed = static_cast<int>(ed.d);
-  const int row = blockIdx.x;
+  const int m0 = static_cast<int>(group) * cells;
+  const int n_valid = min(cells, n_x - m0);
+  const long long at_cell =
+      static_cast<long long>(row) * n_x * n_ed + m0 * n_ed + b;
+
   const int run = static_cast<int>(runs.mod(row));
   const float lo = win_lo[run];
   const float hi = win_hi[run];
   const float scale = win_scale[run];
   const int nb1 = win_nb1[run];
-  const float* row_g = gbar + static_cast<long long>(row) * n_pad;
-  const float* g = row_g;   // a generic pointer: shared or device memory
-  if (stage) {
-    for (int j = threadIdx.x; j < n_pad; j += blockDim.x) s_g[j] = row_g[j];
-    __syncthreads();
-    g = s_g;
+  float t0[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    t0[j] = j < n_valid ? base[at_cell + j * n_ed] : 0.0f;
   }
-  const float* row_base = base + static_cast<long long>(row) * n_cells;
-  float* row_grad = grad + static_cast<long long>(row) * n_cells;
-  for (int cell = threadIdx.x; cell < n_cells; cell += blockDim.x) {
-    const float t0 = row_base[cell];
-    const float* cell_zt = zt_t + ed.mod(cell);
-    const float* cell_zw = zw_t + ed.mod(cell);
-    float acc = 0.0f;
-    for (int k = 0; k < n_seg; ++k) {
-      const int bin = tof_bin(t0 + cell_zt[k * n_ed], lo, hi, scale, nb1);
-      if (bin >= 0) acc += cell_zw[k * n_ed] * g[bin];
+  [[maybe_unused]] float zt[K > 0 ? K : 1], zw[K > 0 ? K : 1];
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      zt[k] = zt_t[k * n_ed + b];
+      zw[k] = zw_t[k * n_ed + b];
     }
-    row_grad[cell] = acc;
+  }
+
+  // the thread's cotangent row: at shared address g_at staged, else g_row
+  unsigned g_at = 0;
+  const float* g_row = gbar + static_cast<long long>(row) * n_pad;
+  if constexpr (STAGE) {
+    const unsigned row0 = items.div(first);
+    const int n_stage = static_cast<int>(items.div(end - 1) - row0 + 1) * n_pad;
+    const float* src = gbar + static_cast<long long>(row0) * n_pad;
+    for (int j = threadIdx.x; j < n_stage; j += kBwdThreads) {
+      copy_async(s_g + j, src + j);
+    }
+    wait_async();
+    __syncthreads();
+    g_at = static_cast<unsigned>(
+        __cvta_generic_to_shared(s_g + (row - row0) * n_pad));
+  }
+  // one sample: every sample gathers (in bounds, without a branch), and an
+  // in-window one adds its term in float32 as the cell's next segment
+  const auto add = [&](float& acc, float t, float zt_k, float zw_k) {
+    const float v = t + zt_k;
+    const int bin = tof_bin_clamped(v, lo, scale, nb1);
+    float g;
+    if constexpr (STAGE) {
+      g = load_shared(g_at + 4u * bin);
+    } else {
+      g = g_row[bin];
+    }
+    const float term = zw_k * g;
+    if (v >= lo && v <= hi) acc += term;
+  };
+
+  float acc[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) acc[j] = 0.0f;
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) add(acc[j], t0[j], zt[k], zw[k]);
+    }
+  } else {
+    for (int k = 0; k < n_seg; ++k) {
+      const float zt_k = zt_t[k * n_ed + b];
+      const float zw_k = zw_t[k * n_ed + b];
+#pragma unroll
+      for (int j = 0; j < C; ++j) add(acc[j], t0[j], zt_k, zw_k);
+    }
+  }
+  if (first + threadIdx.x < end) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (j < n_valid) grad[at_cell + j * n_ed] = acc[j];
+    }
   }
 }
 
@@ -429,6 +602,66 @@ extern "C" int mcmctof_tof_hist(const float* base, const float* draws,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace mcmctof {
+namespace {
+
+// The K the backward kernel for n_seg segments is compiled for, 0: the
+// general kernel
+int bwd_k(int n_seg) { return n_seg == 10 || n_seg == 1 ? n_seg : 0; }
+
+// How the backward cuts a launch into work items
+struct BwdLayout {
+  int cells;          // cells a thread takes, as even as the groups allow
+  long long items;    // work items of a row
+  long long span;     // rows of the cotangent one block can touch
+
+  BwdLayout(int k, int n_rows, int n_x, int n_ed) {
+    const int groups = (n_x + bwd_cells(k) - 1) / bwd_cells(k);
+    cells = (n_x + groups - 1) / groups;
+    items = static_cast<long long>(n_ed) * ((n_x + cells - 1) / cells);
+    span = std::min<long long>(
+        n_rows, (kBwdThreads - 1 + items - 1) / items + 1);
+  }
+};
+
+template <int K, bool STAGE>
+cudaError_t launch_bwd(const BwdLayout& layout, const float* gbar,
+                       const float* base, const float* zt_t,
+                       const float* zw_t, const float* lo, const float* hi,
+                       const float* scale, const int* nb1, float* grad,
+                       int n_rows, int n_runs, int n_x, int n_ed, int n_seg,
+                       int n_pad, cudaStream_t s) {
+  const long long n_total = layout.items * n_rows;
+  if (n_total + kBwdThreads > (1ll << 32)) return cudaErrorInvalidValue;
+  size_t smem = 0;
+  if constexpr (STAGE) {
+    smem = sizeof(float) * static_cast<size_t>(layout.span) * n_pad;
+    if (smem > kSmemNoOptIn) {
+      cudaError_t err = cudaFuncSetAttribute(
+          tof_hist_bwd_kernel<K, STAGE>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+  }
+  const unsigned blocks =
+      static_cast<unsigned>((n_total + kBwdThreads - 1) / kBwdThreads);
+  tof_hist_bwd_kernel<K, STAGE><<<blocks, kBwdThreads, smem, s>>>(
+      gbar, base, zt_t, zw_t, lo, hi, scale, nb1, grad, FastDiv(n_runs),
+      FastDiv(static_cast<uint32_t>(layout.items)), FastDiv(n_ed), n_x,
+      layout.cells, n_seg, n_pad, static_cast<unsigned>(n_total));
+  return cudaSuccess;
+}
+
+}  // namespace
+}  // namespace mcmctof
+
+// Which backward kernel serves n_seg segments: the K it is compiled for
+// (10 or 1), 0 for the general kernel.
+extern "C" int mcmctof_tof_hist_bwd_plan(int n_seg) {
+  return mcmctof::bwd_k(n_seg);
+}
+
 // The backward: gbar (n_rows, n_pad), base (n_rows, n_cells) -> grad
 // (n_rows, n_cells), the tables and windows as for mcmctof_tof_hist.
 extern "C" int mcmctof_tof_hist_bwd(const float* gbar, const float* base,
@@ -446,20 +679,21 @@ extern "C" int mcmctof_tof_hist_bwd(const float* gbar, const float* base,
     return static_cast<int>(cudaMemsetAsync(
         grad, 0, sizeof(float) * static_cast<size_t>(n_rows) * n_cells, s));
   }
-  size_t smem = sizeof(float) * static_cast<size_t>(n_pad);
-  const bool stage = smem <= mcmctof::kSmemOptIn;
-  if (!stage) smem = 0;
-  if (smem > mcmctof::kSmemNoOptIn) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mcmctof::tof_hist_bwd_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return mcmctof::failed(err);
-  }
-  int threads = (n_cells + 31) / 32 * 32;
-  threads = threads > mcmctof::kMaxThreads ? mcmctof::kMaxThreads : threads;
-  using mcmctof::FastDiv;
-  mcmctof::tof_hist_bwd_kernel<<<n_rows, threads, smem, s>>>(
-      gbar, base, zt_t, zw_t, lo, hi, scale, nb1, grad, FastDiv(n_runs),
-      n_cells, FastDiv(n_ed), n_seg, n_pad, stage);
+  const int n_x = n_cells / n_ed;
+  const int k = mcmctof::bwd_k(n_seg);
+  const mcmctof::BwdLayout layout(k, n_rows, n_x, n_ed);
+  // the cotangent staged where the rows a block touches fit a block
+  const bool stage =
+      sizeof(float) * layout.span * n_pad <= mcmctof::kSmemOptIn;
+  auto launch = stage ? (k == 10  ? mcmctof::launch_bwd<10, true>
+                         : k == 1 ? mcmctof::launch_bwd<1, true>
+                                  : mcmctof::launch_bwd<0, true>)
+                      : (k == 10  ? mcmctof::launch_bwd<10, false>
+                         : k == 1 ? mcmctof::launch_bwd<1, false>
+                                  : mcmctof::launch_bwd<0, false>);
+  const cudaError_t err =
+      launch(layout, gbar, base, zt_t, zw_t, lo, hi, scale, nb1, grad,
+             n_rows, n_runs, n_x, n_ed, n_seg, n_pad, s);
+  if (err != cudaSuccess) return mcmctof::failed(err);
   return static_cast<int>(cudaGetLastError());
 }

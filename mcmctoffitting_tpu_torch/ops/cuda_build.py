@@ -43,7 +43,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes (each returns an int: a cudaError_t,
 # the bin cap of mcmctof_weighted_hist_max_bins, the byte count of
-# mcmctof_tof_hist_plan, or the spans of mcmctof_transport_moments_tile)
+# mcmctof_tof_hist_plan, the K of mcmctof_tof_hist_bwd_plan, or the spans
+# of mcmctof_transport_moments_tile)
 _SIGNATURES = {
     # lam, out, n, row_len, n_rep, seed words (device, or null), seed0,
     # seed1, counter offset, block, stride, device, stream
@@ -62,6 +63,9 @@ _SIGNATURES = {
     # n_cells, n_seg, n_pad -> shared memory (bytes) of the fast kernel, or
     # 0 where the general kernel serves
     "mcmctof_tof_hist_plan": [_I] * 3,
+    # n_seg -> the K the backward kernel is compiled for (10, 1), or 0 for
+    # its general kernel
+    "mcmctof_tof_hist_bwd_plan": [_I],
     # values, weights, out, parts, blocks, n_rows, row_len, n_valid, lo,
     # hi, scale, n_bins, device, stream
     "mcmctof_weighted_hist": [_P, _P, _P, _P, _L, _I, _L, _L, _F, _F, _F,

@@ -188,6 +188,14 @@ def tof_hist_segments_backward(gbar: torch.Tensor, base_tof: torch.Tensor,
     return grad
 
 
+def tof_hist_backward_variant(n_seg: int) -> str:
+    """Which backward kernel the C library launches for ``n_seg``
+    segments: ``'K = 10'`` or ``'K = 1'`` (K fixed at compile time), else
+    ``'general'``."""
+    k = load_library().lib.mcmctof_tof_hist_bwd_plan(n_seg)
+    return f"K = {k}" if k else "general"
+
+
 class TofHistSegments(torch.autograd.Function):
     """K2 under autograd on the card: the forward kernel, and as backward
     the ``tof_hist_bwd`` kernel for the draws.  The output is linear in the

@@ -516,11 +516,19 @@ def _k2_bwd_check(gbar, base, zt, zw, win):
 
 
 @pytest.mark.parametrize("case", ["simult", "onebd", "one_row", "few_cells",
-                                  "bins_over_the_stage_cap"])
+                                  "bins_over_the_stage_cap", "k1_501_cells",
+                                  "k10_501_cells", "general_k17",
+                                  "unaligned_cotangent_rows"])
 def test_tof_backward_kernel_matches_plain(dev, case):
     """K2's backward (``tof_hist_bwd``) at both fits' lattices and at the
     edges of its launch: one row, fewer cells than a warp, a window too
-    wide to stage its cotangent in shared memory."""
+    wide to stage its cotangent in shared memory; 501 cells a row (no
+    multiple of any cells-per-thread) with K = 1 and K = 10, the general
+    kernel at K = 17, and an odd number of 70-bin cotangent rows (280
+    bytes: most rows start off a 16-byte boundary) with groups of m that
+    end ragged (M = 7)."""
+    from mcmctoffitting_tpu_torch.ops.cuda_tof import (
+        tof_hist_backward_variant)
     rng = np.random.default_rng(8)
     windows, shape, k = SIMULT_WINDOWS, (8, 4, 10, 50), 10
     if case == "onebd":
@@ -533,6 +541,17 @@ def test_tof_backward_kernel_matches_plain(dev, case):
         windows = (TofWindow(130.0, 260.0, 60_000),
                    TofWindow(175.0, 225.0, 50))
         shape = (3, 2, 10, 50)
+    elif case == "k1_501_cells":
+        windows, shape, k = ONEBD_WINDOWS, (8, 3, 3, 167), 1
+    elif case == "k10_501_cells":
+        shape = (8, 4, 3, 167)
+    elif case == "general_k17":
+        k = 17
+    elif case == "unaligned_cotangent_rows":
+        windows = tuple(tof_windows[n] for n in ("mid", "close", "far"))
+        shape = (3, 3, 7, 50)
+    assert tof_hist_backward_variant(k) == {10: "K = 10", 1: "K = 1"}.get(
+        k, "general")
     base, _, zt, zw, win = _k2_inputs(rng, dev, shape, windows, k)
     gbar = torch.as_tensor(rng.standard_normal(
         shape[:-2] + (win.n_pad,)).astype(np.float32), device=dev)
