@@ -186,21 +186,23 @@ Then walker sharding over torch.distributed ranks (before phase 22):
      one-GPU host: capped to one GPU, says so, and writes the -mesh 1
      chain byte for byte.
 Then posterior parity with the JAX package (before phase 23):
- 24. (a) the same-theta density parity of five cases at full width
+ 24. (a) the same-theta density parity of eight cases at full width
      against the JAX package's values in perf/parity/ (made on the CPU by
-     perf/parity_reference.py; the corrected likelihood throughout):
-     simultFit counts, oneBD -hardcore counts, simultFit mc default, mc on
-     rk4 'taylor' (R = 16 evaluations at each of 48 thetas: the JAX tool's
-     spread < max(5 noise, 1 nat) and chi2/dof <= 1 + 4 sqrt(2 / 47)) and
-     'expected' (centred spread < 0.25 nats, gradient relative L2 < 0.25
-     at every theta and < 0.01 in the median); K1, K2, K4 and K2's
-     backward launched as each path says; (b) the port's DE chains of the
-     two counts cases at the JAX chains' walkers and steps, their dz
-     tables against the JAX chain's summary: simultFit's gated (worst
-     |dz| < 0.25 and worst |z_se| < 4); oneBD's |dz| < 0.25 gated, its
-     z_se printed as the known fault of its case (ROADMAP Queue 3: its
-     ensemble accepts ~0.1% of its moves in both packages, and its tau is
-     too long for the chain to estimate).
+     perf/parity_reference.py): simultFit counts, oneBD -hardcore counts,
+     simultFit mc default, mc on rk4 'taylor' and 'exact', counts with the
+     faithful likelihood, the simple family's v2 (R = 16 evaluations at
+     each of 48 thetas: the JAX tool's spread < max(5 noise, 1 nat) and
+     chi2/dof <= 1 + 4 sqrt(2 / 47) on the finite repeats, and the -inf
+     shares' two-proportion z < 4) and 'expected' (centred spread < 0.25
+     nats, gradient relative L2 < 0.25 at every theta and < 0.01 in the
+     median); K1-K4 and K2's backward launched as each path says; (b) the
+     port's DE chains of simultFit counts, oneBD -hardcore counts and
+     simple v2 at the JAX chains' walkers and steps, their dz tables
+     against the JAX chain's summary: worst |dz| < 0.25 and worst |z_se|
+     < 4, z_se in the batch-median standard error (the tool's printed
+     beside it); (c) one seed of PT -model tof (the reference's cut of
+     its steps): ln Z within 4 noise of the JAX seeds' and the cold
+     chain's dz table against theirs.
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
@@ -2065,29 +2067,18 @@ def phase_csi2016(dev, smi, tmp, rate, launches):
 # --- phase 24: posterior parity with the JAX package ----------------------
 
 PARITY_DIR = Path(__file__).resolve().parent / "perf" / "parity"
-# chains whose z_se gate is out of phase 24 (ROADMAP Queue 3, with the
-# tables): the phase gates their |dz| alone and prints their table as
-# that fault
-PARITY_CHAIN_FAULTS = {
-    "onebd_hardcore_counts": (
-        "a fault of the case, not of the port (ROADMAP Queue 3): the "
-        "Poisson background drawn per evaluation makes the log-prob's "
-        "noise ~11 nats, the DE ensemble accepts ~0.1% of its moves in "
-        "both packages, and its tau (~1,000 steps) is too long for the "
-        "chain's 7,600 main steps to estimate, so median_se understates "
-        "the medians' spread; the JAX package's own chains of the case "
-        "fail z_se against its reference too"),
-}
 
 
 def parity_launches(name, used, label, evals=1):
-    """The case's kernels (``parity.CASES``) launched, the others not; K2
-    at least once per evaluation (``evals``: the chain's, its initial
-    refreshes aside), and oneBD counts launches K1 twice per evaluation
-    (cell counts and background)."""
-    on_path = parity.CASES[name]["kernels"]
-    require(used["tof_hist"] >= evals,
-            f"{label}: K2 once per evaluation on {name}'s path ({used})")
+    """The case's kernels (``parity.CASES`` or ``PT_CASES``) launched, the
+    others not; K2 (K3 where no K2 is on the path) at least once per
+    evaluation (``evals``: the chain's, its initial refreshes aside), and
+    oneBD counts launches K1 twice per evaluation (cell counts and
+    background)."""
+    on_path = (parity.CASES.get(name) or parity.PT_CASES[name])["kernels"]
+    main = "tof_hist" if "tof_hist" in on_path else "weighted_hist"
+    require(used[main] >= evals,
+            f"{label}: {main} once per evaluation on {name}'s path ({used})")
     for kernel, n in used.items():
         if kernel in on_path:
             require(n > 0, f"{label}: {kernel} launched on {name}'s path")
@@ -2102,13 +2093,102 @@ def parity_launches(name, used, label, evals=1):
                 f"{label}: K1 once per evaluation ({used})")
 
 
+def density_gates(dens) -> str:
+    """A density check's gates as text."""
+    if "chi2_dof" not in dens:
+        return (f"spread {dens['spread_nats']:.4f} nats (< "
+                f"{dens['spread_tol_nats']}), gradient rel L2 max "
+                f"{dens['grad_rel_l2_max']:.3e} (< {dens['grad_tol']}), "
+                f"median {dens['grad_rel_l2_median']:.3e} (< "
+                f"{dens['grad_median_tol']})")
+    sh = dens["neg_inf"]
+    return (f"spread {dens['spread_nats']:.4f} nats (< "
+            f"{dens['spread_gate_nats']:.4f}), chi2/dof "
+            f"{dens['chi2_dof']:.4f} (<= {dens['chi2_dof_max']:.4f}), noise "
+            f"{dens['noise_nats']:.4f}, {dens['n_finite']} thetas compared; "
+            f"-inf share JAX {sh['ref_share']:.4f} / port "
+            f"{sh['port_share']:.4f} (z {sh['z_pooled']:+.2f}, per theta "
+            f"{sh['z_per_theta']:.2f}, < {parity.Z_SE_MAX})")
+
+
+def parity_chain(name, ref, problem, smi, launches):
+    """24b: the port's DE chain of a case at the JAX chain's walkers and
+    steps, its dz table against the JAX chain's summary (z_se on the
+    batch-median SE; the tool's printed beside it)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    pos, acc = parity.run_port_chain(ref, problem, seed=24)
+    seconds = time.perf_counter() - t0
+    used = read_counts()
+    ch = ref.meta["chain"]
+    parity_launches(name, used, "phase 24b",
+                    evals=2 * (ch["burnin"] + ch["main"]) + 1)
+    launches[f"parity_chain_{name}"] = used
+    table = parity.dz_table(ch["summary"], pos, ref.names)
+    table.update(acceptance=acc, ref_acceptance=ch["acceptance"],
+                 seconds=seconds, walkers=ch["walkers"],
+                 burnin=ch["burnin"], main=ch["main"])
+    log(f"phase 24b ({smi}): {name} DE chain, {ch['walkers']} walkers x "
+        f"{ch['burnin']} + {ch['main']} steps: worst |dz| "
+        f"{table['worst_dz']:.4f}, worst |z_se| {table['worst_z_se']:.3f} "
+        f"(the tool's SE: {table['worst_z_se_tool']:.3f}), min ESS port "
+        f"{table['min_port_ess']:.0f} / JAX {table['min_ref_ess']:.0f}, "
+        f"acceptance {acc:.3f} / {ch['acceptance']:.3f}, {seconds:.1f} s, "
+        f"launches {used} -> {table['verdict']}")
+    for line in parity.format_dz(table).splitlines():
+        log(f"  {line}")
+    require(table["verdict"] == "PASS",
+            f"phase 24b: {name} chain parity with the JAX package")
+    return table
+
+
+def parity_evidence(dev, smi, launches):
+    """24c: one port seed of PT ``-model tof`` (the reference's cut of the
+    CLI's steps) on the JAX package's data: its ln Z within 4 noise of the
+    JAX seeds' mean, the noise from the JAX seeds' spread (one seed of
+    the port has none of its own), and its cold chain's dz table against
+    the JAX seeds' pooled cold chains."""
+    name = "pt_shifting_gaussian_tof"
+    ref = parity.load_reference(PARITY_DIR / f"{name}.npz")
+    meta = ref.meta
+    jax_ln_z = [r["ln_z"] for r in meta["runs"]]
+    reset_counts()
+    ln_z, d_ln_z, cold, _, seconds = parity.run_port_pt(
+        meta, ref.observed, dev, seed=24)
+    used = read_counts()
+    parity_launches(name, used, "phase 24c",
+                    evals=2 * (meta["burnin"] + meta["steps"]) + 1)
+    launches[f"parity_{name}"] = used
+    ev = parity.evidence_parity(jax_ln_z, [ln_z],
+                                port_var=np.var(jax_ln_z, ddof=1))
+    table = parity.dz_table(meta["cold_summary"], cold, ref.names)
+    log(f"phase 24c ({smi}): {name}, {meta['temps']} temps x "
+        f"{meta['walkers']} walkers x {meta['burnin']} + {meta['steps']} "
+        f"steps: ln Z port {ln_z:.4f} (+- {d_ln_z:.4f} trapezoid halving) "
+        f"vs JAX {ev['ref_mean']:.4f} (sd {ev['ref_sd']:.4f} over "
+        f"{len(jax_ln_z)} seeds): {ev['z']:+.2f} noise (< "
+        f"{parity.LN_Z_SIGMAS}) -> {ev['verdict']}; cold chain worst |dz| "
+        f"{table['worst_dz']:.4f}, worst |z_se| {table['worst_z_se']:.3f} "
+        f"-> {table['verdict']}; {seconds:.1f} s, launches {used}")
+    for line in parity.format_dz(table, ("JAX", "port")).splitlines():
+        log(f"  {line}")
+    require(ev["verdict"] == "PASS",
+            f"phase 24c: {name} ln Z against the JAX package's seeds")
+    require(table["verdict"] == "PASS",
+            f"phase 24c: {name} cold chain against the JAX package's")
+    return {"evidence": ev, "cold_chain": table, "seconds": seconds,
+            "ln_z": ln_z, "d_ln_z": d_ln_z}
+
+
 def phase_parity(dev, smi, launches):
-    """24a: the same-theta density parity of the five cases against the
-    JAX package's values (perf/parity/<case>.npz, made on the CPU by
-    perf/parity_reference.py); 24b: the port's DE chains of the two counts
-    cases at the JAX chains' walkers and steps, gated by dz and z_se
-    (oneBD's by |dz| alone: ``PARITY_CHAIN_FAULTS``).  A gate that does
-    not pass fails the script."""
+    """24a: the same-theta density parity of every case of
+    ``parity.CASES`` against the JAX package's values
+    (perf/parity/<case>.npz, made on the CPU by
+    perf/parity_reference.py), the -inf shares beside it; 24b: the port's
+    DE chains of the chain cases at the JAX chains' walkers and steps,
+    gated by dz and z_se; 24c: PT
+    ``-model tof``'s ln Z and cold chain against the JAX seeds'.  A gate
+    that does not pass fails the script."""
     out = {}
     for name in parity.CASES:
         ref = parity.load_reference(PARITY_DIR / f"{name}.npz")
@@ -2123,64 +2203,19 @@ def phase_parity(dev, smi, launches):
         launches[f"parity_{name}"] = used
         row = {k: v for k, v in dens.items() if not k.startswith("port_")}
         row["seconds"] = seconds
-        if "chi2_dof" in dens:
-            gates = (f"spread {dens['spread_nats']:.4f} nats (< "
-                     f"{dens['spread_gate_nats']:.4f}), chi2/dof "
-                     f"{dens['chi2_dof']:.4f} (<= {dens['chi2_dof_max']:.4f})"
-                     f", noise {dens['noise_nats']:.4f}")
-        else:
-            gates = (f"spread {dens['spread_nats']:.4f} nats (< "
-                     f"{dens['spread_tol_nats']}), gradient rel L2 max "
-                     f"{dens['grad_rel_l2_max']:.3e} (< {dens['grad_tol']})"
-                     f", median {dens['grad_rel_l2_median']:.3e} (< "
-                     f"{dens['grad_median_tol']})")
         log(f"phase 24a ({smi}): {name} at {dens['n_thetas']} JAX thetas: "
-            f"{gates}, offset {dens['mean_offset_nats']:+.3f} nats, "
-            f"correlations {dens['correlations']}, {seconds:.2f} s, "
+            f"{density_gates(dens)}, offset {dens['mean_offset_nats']:+.3f} "
+            f"nats, correlations {dens['correlations']}, {seconds:.2f} s, "
             f"launches {used} -> {dens['verdict']}")
         require(dens["verdict"] == "PASS",
                 f"phase 24a: {name} density parity with the JAX package")
         out[name] = {"density": row}
         if name in parity.DE_CHAIN_CASES:
-            reset_counts()
-            t0 = time.perf_counter()
-            pos, acc = parity.run_port_chain(ref, problem, seed=24)
-            seconds = time.perf_counter() - t0
-            used = read_counts()
-            ch = ref.meta["chain"]
-            parity_launches(name, used, "phase 24b",
-                            evals=2 * (ch["burnin"] + ch["main"]) + 1)
-            launches[f"parity_chain_{name}"] = used
-            table = parity.dz_table(ch["summary"], pos, ref.names)
-            table.update(acceptance=acc, ref_acceptance=ch["acceptance"],
-                         seconds=seconds, walkers=ch["walkers"],
-                         burnin=ch["burnin"], main=ch["main"])
-            log(f"phase 24b ({smi}): {name} DE chain, {ch['walkers']} "
-                f"walkers x {ch['burnin']} + {ch['main']} steps: worst "
-                f"|dz| {table['worst_dz']:.4f}, worst |z_se| "
-                f"{table['worst_z_se']:.3f}, min ESS port "
-                f"{table['min_port_ess']:.0f} / JAX "
-                f"{table['min_ref_ess']:.0f}, acceptance {acc:.3f} / "
-                f"{ch['acceptance']:.3f}, {seconds:.1f} s, launches {used} "
-                f"-> {table['verdict']}")
-            for line in parity.format_dz(table).splitlines():
-                log(f"  {line}")
-            fault = PARITY_CHAIN_FAULTS.get(name)
-            if fault:
-                log(f"phase 24b: {name}: {table['verdict']} by the tool's "
-                    f"gate; |dz| < {parity.DZ_MAX} gated, z_se not: "
-                    f"{fault}")
-                table["z_se_not_gated"] = fault
-                require(table["worst_dz"] < parity.DZ_MAX,
-                        f"phase 24b: {name} chain |dz| < {parity.DZ_MAX} "
-                        f"against the JAX package")
-            else:
-                require(table["verdict"] == "PASS",
-                        f"phase 24b: {name} chain parity with the JAX "
-                        f"package")
-            out[name]["chain"] = table
+            out[name]["chain"] = parity_chain(name, ref, problem, smi,
+                                              launches)
         del problem
         torch.cuda.empty_cache()
+    out["pt_shifting_gaussian_tof"] = parity_evidence(dev, smi, launches)
     return out
 
 
@@ -2735,6 +2770,7 @@ def main():
                          "(this smoke test needs an NVIDIA GPU)")
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    script_t0 = time.perf_counter()
     smi = smi_line()
     log(f"phase 0: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
@@ -3031,7 +3067,10 @@ def main():
     # phase 24: posterior parity with the JAX package (before phase 11
     # and phase 22's profiler too: its chains are host-bound)
     torch.cuda.empty_cache()
+    t24 = time.perf_counter()
     parity_out = phase_parity(dev, smi, launches)
+    parity_out["seconds"] = time.perf_counter() - t24
+    log(f"phase 24 ({smi}): {parity_out['seconds']:.1f} s")
 
     # phase 23: walker sharding over torch.distributed ranks (before phase
     # 11 too, and before phase 22's profiler: its one-process reference
@@ -3164,7 +3203,11 @@ def main():
         "launches_parity": launches["parity_simult_expected"]["K2-bwd"]})
     # phase 18d, last: -profile in a subprocess of its own
     profile_kernels = phase_profile()
-    print(json.dumps({"kernels": kernels, "walker_steps_per_s": rate,
+    script_s = time.perf_counter() - script_t0
+    log(f"chip_smoke ({smi}): every phase in {script_s:.1f} s, phase 24 "
+        f"{parity_out['seconds']:.1f} s")
+    print(json.dumps({"kernels": kernels, "script_seconds": script_s,
+                      "walker_steps_per_s": rate,
                       "acceptance": acc, "launches_by_path": launches,
                       "onebd_a_build_seconds": at_onebd["a_build_seconds"],
                       "ppc": {"gpu_vs_cpu": ppc_core, "cli": ppc_cli,

@@ -158,14 +158,10 @@ def main(argv=None) -> dict:
                               for d, n in enumerate(names)}
 
     # --- parallel tempering (PTSampler configuration, :349-360)
-    loglike, logprior = sg.make_pt_fns(data, numeric=True)
-    p0 = truth + 1e-3 * torch.randn(
-        (args.nTemps, args.ptWalkers, 3),
-        generator=seeded_generator(args.seed, STREAM_PT_WALKERS, device),
-        device=device)
+    loglike, logprior, p0 = analytic_pt_setup(data, args.seed, args.nTemps,
+                                              args.ptWalkers, device)
     _, main_chain, seconds = run_tempered(
-        p0, args.ptBurnin, args.ptSteps, args.thin,
-        lambda th, g: loglike(th), lambda th, g: logprior(th),
+        p0, args.ptBurnin, args.ptSteps, args.thin, loglike, logprior,
         seed=args.seed, move=args.move)
     result["pt_walker_steps_per_sec"] = (
         (args.ptBurnin + args.ptSteps) * args.nTemps * args.ptWalkers
@@ -199,13 +195,34 @@ def main(argv=None) -> dict:
     return result
 
 
-def tof_pt_setup(seed: int, n_temps: int, n_walkers: int, device):
+def analytic_pt_setup(data, seed: int, n_temps: int, n_walkers: int,
+                      device):
+    """The analytic PT posterior on ``data`` (the observed y): (batched
+    log-likelihood and log-prior of (N, D) thetas and the host generator,
+    initial walkers (T, W, 3) at the truth + 1e-3 N(0, 1))."""
+    import torch
+
+    from ..models import shifting_gaussian as sg
+    from ._driver import seeded_generator
+
+    loglike, logprior = sg.make_pt_fns(data, numeric=True)
+    truth = torch.as_tensor(TRUTH, dtype=torch.float32, device=device)
+    p0 = truth + 1e-3 * torch.randn(
+        (n_temps, n_walkers, 3),
+        generator=seeded_generator(seed, STREAM_PT_WALKERS, device),
+        device=device)
+    return (lambda th, g: loglike(th)), (lambda th, g: logprior(th)), p0
+
+
+def tof_pt_setup(seed: int, n_temps: int, n_walkers: int, device, *,
+                 observed=None):
     """The reduced TOF posterior of ``-model tof``: (problem, observed
     count arrays, batched log-likelihood and log-prior of (N, D) thetas and
     the host generator, initial walkers (T, W, D)).  simultFit, 2 runs at
     50k draws, counts forward, corrected likelihood; data synthesized at
-    the truth; walkers from ``initial_walkers_from_observed``.  The
-    log-likelihood takes ``walker_offset`` and ``walker_blocks``
+    the truth unless ``observed`` (the runs' counts) is given; walkers
+    from ``initial_walkers_from_observed``.  The log-likelihood takes
+    ``walker_offset`` and ``walker_blocks``
     (``parallel.make_sharded_pt_batch`` with ``by_row``)."""
     import torch
 
@@ -219,8 +236,9 @@ def tof_pt_setup(seed: int, n_temps: int, n_walkers: int, device):
     problem = simult.SimultFitProblem(spec, n_runs=n_runs,
                                       likelihood="poisson", device=device)
     truth = np.concatenate([simult.GUESS_SHARED, np.full(n_runs, 5.0e4)])
-    observed = data_io.synthesize_observed(stream_seed(seed, STREAM_DATA),
-                                           problem, truth)
+    if observed is None:
+        observed = data_io.synthesize_observed(
+            stream_seed(seed, STREAM_DATA), problem, truth)
     obs = problem.observed_runs(observed)
     lo, hi = (torch.as_tensor(v, dtype=torch.float32, device=device)
               for v in (problem.param_lo, problem.param_hi))

@@ -63,8 +63,10 @@ def test_median_se_is_the_tools():
 
 
 def test_dz_table_is_the_tools_report():
-    """dz and z_se as the tool's ``report`` computes them, on two synthetic
-    chains; a shift of half a sigma is a REVIEW, none a PASS."""
+    """dz and the tool's z_se (``z_se_tool``) as the tool's ``report``
+    computes them, on two synthetic chains, and the gated z_se from the
+    batch SE (``parity.z_between``); a shift of half a sigma is a
+    REVIEW, none a PASS."""
     rng = np.random.default_rng(1)
     names = ["a", "b"]
     ref = np.stack([_ar1_chain(rng, 400, 32, 0.8, 1.0, 2.0),
@@ -72,6 +74,8 @@ def test_dz_table_is_the_tools_report():
     port = np.stack([_ar1_chain(rng, 400, 32, 0.8, 1.0, 2.0),
                      _ar1_chain(rng, 400, 32, 0.6, -5.0, 0.5)], -1)
     table = parity.dz_table(parity.chain_summary(ref, names), port, names)
+    bse_r, dof_r = parity.batch_median_se(ref)
+    bse_o, dof_o = parity.batch_median_se(port)
     for d, row in enumerate(table["rows"]):
         rq = np.percentile(ref[:, :, d].reshape(-1), [16, 50, 84])
         oq = np.percentile(port[:, :, d].reshape(-1), [16, 50, 84])
@@ -81,8 +85,10 @@ def test_dz_table_is_the_tools_report():
         se_o, ess_o = _tool_median_se(port[:, :, d])
         assert row["dz"] == pytest.approx((oq[1] - rq[1]) / pooled,
                                           rel=1e-9)
-        assert row["z_se"] == pytest.approx(
+        assert row["z_se_tool"] == pytest.approx(
             (oq[1] - rq[1]) / np.sqrt(se_r ** 2 + se_o ** 2), rel=1e-9)
+        assert row["z_se"] == pytest.approx(parity.z_between(
+            oq[1] - rq[1], bse_r[d], dof_r, bse_o[d], dof_o)[0], rel=1e-9)
         assert row["ref_ess"] == pytest.approx(ess_r)
         assert row["port_ess"] == pytest.approx(ess_o)
     assert table["verdict"] == "PASS", parity.format_dz(table)
