@@ -72,6 +72,7 @@ from ..ops.timing import (ExGaussianTiming, GaussianTiming,
                           causal_conv_matrix, same_conv_matrix,
                           zero_degree_expo_kernel)
 from ..ops.xs import ddn_xs_uniform
+from ..utils.profiling import span
 
 _SUPPORTED = {
     "sampling": ("counts", "mc", "expected"),
@@ -480,27 +481,34 @@ class TofForward(torch.nn.Module):
 
     def _counts_grid_and_mean(self, params, generator, walker_offset=0,
                               walker_blocks=None):
-        rates = self.counts_rates(params)
-        # every run of a walker draws from the walker's rates: the kernel
-        # reads them once per run, no copy along the run axis
-        per_walker = self.n_runs * rates.lam.shape[-1]
-        counts = poisson(rates.lam, seed_words(generator),
-                         n_runs=self.n_runs,
-                         **k1_counters(walker_offset, walker_blocks,
-                                       per_walker))           # (W, R, F+2)
-        per_run = CountsRates(*(t[:, None] for t in rates))  # run axis
-        moments, e0_means = moments_from_counts(self.e0grid, counts, per_run)
-        return self.attenuate(contract(self.e0grid, moments)), e0_means
+        with span("mcmctof.rates"):
+            rates = self.counts_rates(params)
+        with span("mcmctof.k1_cells"):
+            # every run of a walker draws from the walker's rates: the
+            # kernel reads them once per run, no copy along the run axis
+            per_walker = self.n_runs * rates.lam.shape[-1]
+            counts = poisson(rates.lam, seed_words(generator),
+                             n_runs=self.n_runs,
+                             **k1_counters(walker_offset, walker_blocks,
+                                           per_walker))       # (W, R, F+2)
+        with span("mcmctof.moments"):
+            per_run = CountsRates(*(t[:, None] for t in rates))  # run axis
+            moments, e0_means = moments_from_counts(self.e0grid, counts,
+                                                    per_run)
+        with span("mcmctof.contract"):
+            grids = self.attenuate(contract(self.e0grid, moments))
+        return grids, e0_means
 
     def _expected_grid_and_mean(self, params):
         """One closed-form grid and mean per walker, shared by its runs:
         ((W, 1, M, Be), (W, R))."""
         spec = self.spec
-        grid, e0_mean = expected_grid(
-            self.e0grid, params[:, 0], params[:, 1], params[:, 2],
-            params[:, 3], spec.n_samples, spec.truncated,
-            spec.moment_closure)
-        grid = self.attenuate(grid)
+        with span("mcmctof.expected"):
+            grid, e0_mean = expected_grid(
+                self.e0grid, params[:, 0], params[:, 1], params[:, 2],
+                params[:, 3], spec.n_samples, spec.truncated,
+                spec.moment_closure)
+            grid = self.attenuate(grid)
         return grid[:, None], e0_mean[:, None].expand(-1, self.n_runs)
 
     # --- the mc estimator -----------------------------------------------
@@ -568,8 +576,11 @@ class TofForward(torch.nn.Module):
         return self.attenuate(grid.reshape(lead + (n_x, eb.n)))
 
     def _mc_grid_and_mean(self, params, generator):
-        e0 = self.sample_beam_energies(params, generator)    # (W, R, N)
-        return self.energy_weight_grid(e0), torch.mean(e0, dim=-1)
+        with span("mcmctof.beam_draw"):
+            e0 = self.sample_beam_energies(params, generator)  # (W, R, N)
+        with span("mcmctof.energy_grid"):
+            grids = self.energy_weight_grid(e0)
+        return grids, torch.mean(e0, dim=-1)
 
     def lattice_e0_means(self, params: torch.Tensor,
                          sample_means: torch.Tensor) -> torch.Tensor:
@@ -681,8 +692,11 @@ class TofForward(torch.nn.Module):
         else the raw TOF sums) times the run scales (W, R), plus the
         ``background`` (W, R, n_pad) where there is one; zero past each
         run's n_bins."""
-        return self.shape_spectra(self.tof_histogram(base_tof, draws),
-                                  scales, background, get_pdf=get_pdf)
+        with span("mcmctof.k2"):
+            hist = self.tof_histogram(base_tof, draws)
+        with span("mcmctof.shape"):
+            return self.shape_spectra(hist, scales, background,
+                                      get_pdf=get_pdf)
 
     def tof_spectra_multi(self, params: torch.Tensor, scales: torch.Tensor,
                           generator: torch.Generator,
@@ -703,9 +717,12 @@ class TofForward(torch.nn.Module):
                 {"walker_offset": walker_offset,
                  "walker_blocks": walker_blocks})
         grids, e0_means = self.grid_and_mean(params, generator, **rows)
-        base_tof, draws = self.lattice(grids, e0_means)
-        background = (None if bg_levels is None
-                      else self.background(bg_levels, generator, **rows))
+        with span("mcmctof.lattice"):
+            base_tof, draws = self.lattice(grids, e0_means)
+        background = None
+        if bg_levels is not None:
+            with span("mcmctof.background"):
+                background = self.background(bg_levels, generator, **rows)
         out = self.spectra(base_tof, draws, scales, background,
                            get_pdf=get_pdf)
         if return_spectra:

@@ -18,6 +18,7 @@ import torch
 from ..constants import TofWindow
 from ..ops.likelihoods import (box_lnprior, poisson_binned_loglike,
                                poisson_logpmf_loglike)
+from ..utils.profiling import span
 from .forward import (ForwardSpec, ForwardTables, TofForward, resolve_device,
                       single_run_spectrum)
 
@@ -159,11 +160,13 @@ class JointFitProblem:
         ``rows``: ``walker_offset``, ``walker_blocks`` of
         :meth:`run_spectra`."""
         spectra = self.run_spectra(thetas, generator, **rows)
-        loglike = (poisson_binned_loglike if self.likelihood == "reference"
-                   else poisson_logpmf_loglike)
-        total = torch.sum(loglike(spectra, observed.counts,
-                                  mask=observed.mask), dim=-1)
-        return torch.where(torch.isnan(total), -torch.inf, total)
+        with span("mcmctof.likelihood"):
+            loglike = (poisson_binned_loglike
+                       if self.likelihood == "reference"
+                       else poisson_logpmf_loglike)
+            total = torch.sum(loglike(spectra, observed.counts,
+                                      mask=observed.mask), dim=-1)
+            return torch.where(torch.isnan(total), -torch.inf, total)
 
     def log_prob(self, thetas, generator, observed: ObservedRuns, *,
                  walker_offset: int = 0, walker_blocks=None):
@@ -173,14 +176,16 @@ class JointFitProblem:
         ``walker_offset``, the global index of the batch's first walker,
         and ``walker_blocks`` place the batch in a larger one (a shard):
         K1 then draws that batch's numbers for these rows."""
-        lo, hi = self._bounds
-        prior = box_lnprior(thetas, lo, hi, inclusive=True)
-        total = prior + self.log_like(thetas, generator, observed,
-                                      walker_offset=walker_offset,
-                                      walker_blocks=walker_blocks)
-        return torch.where(torch.isneginf(prior), -torch.inf,
-                           torch.where(torch.isnan(total), -torch.inf,
-                                       total))
+        with span("mcmctof.logp"):
+            with span("mcmctof.prior"):
+                lo, hi = self._bounds
+                prior = box_lnprior(thetas, lo, hi, inclusive=True)
+            total = prior + self.log_like(thetas, generator, observed,
+                                          walker_offset=walker_offset,
+                                          walker_blocks=walker_blocks)
+            return torch.where(torch.isneginf(prior), -torch.inf,
+                               torch.where(torch.isnan(total), -torch.inf,
+                                           total))
 
     def make_log_prob_fn(self, observed):
         """Closure (thetas (W, D), host generator) -> (W,) for the

@@ -26,6 +26,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
+
 LogpBatch = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
 
 
@@ -147,13 +149,14 @@ def make_step(logp_batch: LogpBatch, a: float = 2.0, *,
         accepted = torch.empty(pos.shape[0], dtype=torch.bool,
                                device=pos.device)
         for parity in (0, 1):
-            if use_de:
-                acc = _half_update_de(pos, lp, parity, gen, eval_gen,
-                                      logp_batch, g0, de_sigma)
-            else:
-                acc = _half_update(pos, lp, parity, gen, eval_gen,
-                                   logp_batch, a)
-            accepted[parity::2] = acc
+            with span("mcmctof.half_update"):
+                if use_de:
+                    acc = _half_update_de(pos, lp, parity, gen, eval_gen,
+                                          logp_batch, g0, de_sigma)
+                else:
+                    acc = _half_update(pos, lp, parity, gen, eval_gen,
+                                       logp_batch, a)
+                accepted[parity::2] = acc
         return EnsembleState(pos, lp, gen, eval_gen, step_idx + 1), accepted
 
     return step
@@ -176,10 +179,11 @@ def run_mcmc(state: EnsembleState, n_steps: int, logp_batch: LogpBatch, *,
                           device=lp.device)
     n_accepted = torch.zeros(n_walkers, dtype=torch.int64, device=pos.device)
     for i in range(n_steps):
-        state, accepted = step(state)
-        pos_hist[i] = state.positions
-        lp_hist[i] = state.log_probs
-        n_accepted += accepted
+        with span("mcmctof.step"):
+            state, accepted = step(state)
+            pos_hist[i] = state.positions
+            lp_hist[i] = state.log_probs
+            n_accepted += accepted
     return Chain(pos_hist, lp_hist, n_accepted, state)
 
 

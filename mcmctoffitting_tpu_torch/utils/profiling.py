@@ -1,21 +1,26 @@
-"""Profiling and throughput instrumentation.
+"""Profiling instrumentation.
 
-Port of ``mcmctoffitting_tpu/utils/profiling.py``:
+Port of ``mcmctoffitting_tpu/utils/profiling.py``, and the port's spans:
 
 * :func:`trace` -- context manager around ``torch.profiler`` (CPU and CUDA
-  activities) writing a Chrome trace into a directory;
-* :class:`Throughput` -- running walker-steps/sec meter for sampler loops;
-* :func:`time_fn` -- first call vs steady state of a callable (the JAX
-  package's ``time_jitted``: there the first call compiles, here it builds
-  the kernels a path launches and warms the caches).
+  activities, spans on) writing a Chrome trace into a directory;
+* :func:`span` -- a named span around one stage of the hot path (the
+  sampler step, the half-update, the log-prob, each forward stage).  Off,
+  the default, it is one shared do-nothing context: one global test, no
+  allocation, nothing read from the device.  Inside :func:`spans` each
+  span records its host interval (``time.perf_counter_ns``) and its
+  enclosing span, and under ``torch.profiler`` it also opens a
+  ``record_function`` of its name, so that the profiler's device
+  operations and idle gaps can be put down to it.  A span never reads a
+  tensor and never synchronizes.  Names are fixed strings that start
+  with ``mcmctof.``; spans nest on one thread.
 """
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import os
 import time
-from typing import Callable
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,63 +29,118 @@ TRACE_FILE = "trace.json"
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Profile the block, CPU and CUDA activities, and write its Chrome
-    trace to ``logdir/trace.json``: ``with trace('dir'): run_step()``."""
+    """Profile the block, CPU and CUDA activities, with the port's spans
+    on, and write its Chrome trace to ``logdir/trace.json``:
+    ``with trace('dir'): run_step()``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, spans():
         yield logdir
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-@dataclasses.dataclass
-class Throughput:
-    """Walker-steps/sec meter, reported incrementally like the drivers'
-    per-step progress prints (``tests/simultFit.py:736,780``)."""
+class SpanRecord(NamedTuple):
+    """One closed span: its name, the name of the span that enclosed it
+    (None at the top), its host interval and its own time (the interval
+    less its children's), in ns of ``time.perf_counter_ns``."""
 
-    n_walkers: int
-    t0: float = dataclasses.field(default_factory=time.perf_counter)
-    steps: int = 0
-
-    def update(self, n_steps: int) -> float:
-        self.steps += n_steps
-        return self.rate
-
-    @property
-    def rate(self) -> float:
-        dt = time.perf_counter() - self.t0
-        return self.steps * self.n_walkers / dt if dt > 0 else 0.0
+    name: str
+    parent: Optional[str]
+    start_ns: int
+    end_ns: int
+    self_ns: int
 
 
-def _synchronize(out) -> None:
-    """Wait for the CUDA devices that hold a tensor of ``out`` (a tensor,
-    or tuples, lists and dicts of them)."""
-    if isinstance(out, torch.Tensor):
-        if out.is_cuda:
-            torch.cuda.synchronize(out.device)
-    elif isinstance(out, dict):
-        for v in out.values():
-            _synchronize(v)
-    elif isinstance(out, (tuple, list)):
-        for v in out:
-            _synchronize(v)
+class _Off:
+    """The span of spans off: enters and leaves doing nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
 
 
-def time_fn(fn: Callable, *args, n_iters: int = 3) -> dict:
-    """Time a callable: the first call vs the mean of ``n_iters`` more,
-    each timed to the end of the device work its CUDA outputs wait for."""
-    t0 = time.perf_counter()
-    out = fn(*args)
-    _synchronize(out)
-    first_s = time.perf_counter() - t0
+_OFF = _Off()
+_recorder: Optional["SpanRecorder"] = None
 
-    t0 = time.perf_counter()
-    for _ in range(n_iters):
-        out = fn(*args)
-    _synchronize(out)
-    steady_s = (time.perf_counter() - t0) / n_iters
-    return {"first_s": first_s, "steady_s": steady_s}
+
+def span(name: str):
+    """The context of one span named ``name`` (``mcmctof.<stage>``): the
+    shared do-nothing context unless :func:`spans` is on."""
+    if _recorder is None:
+        return _OFF
+    return _Span(_recorder, name)
+
+
+class _Span:
+    __slots__ = ("rec", "name", "start", "child", "label")
+
+    def __init__(self, rec, name):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        self.label = None
+        if torch.autograd._profiler_enabled():
+            self.label = torch.profiler.record_function(self.name)
+            self.label.__enter__()
+        self.child = 0
+        self.rec.open.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        open_ = self.rec.open
+        open_.pop()
+        total = end - self.start
+        parent = open_[-1] if open_ else None
+        if parent is not None:
+            parent.child += total
+        self.rec.records.append(SpanRecord(
+            self.name, None if parent is None else parent.name, self.start,
+            end, total - self.child))
+        if self.label is not None:
+            self.label.__exit__(*exc)
+        return False
+
+
+class SpanRecorder:
+    """The spans closed while :func:`spans` was on, in closing order."""
+
+    def __init__(self):
+        self.records: list[SpanRecord] = []
+        self.open: list[_Span] = []
+
+    def summary(self) -> dict:
+        """Per span name: ``calls``, ``total_ms`` (host) and ``self_ms``
+        (the total less the spans directly inside), summed over its
+        calls, and ``parent`` (the enclosing span of its first call)."""
+        out = {}
+        for r in self.records:
+            s = out.setdefault(r.name, {"calls": 0, "total_ms": 0.0,
+                                        "self_ms": 0.0, "parent": r.parent})
+            s["calls"] += 1
+            s["total_ms"] += 1e-6 * (r.end_ns - r.start_ns)
+            s["self_ms"] += 1e-6 * r.self_ns
+        return out
+
+
+@contextlib.contextmanager
+def spans():
+    """Turn the spans on for the block: ``with spans() as rec: ...``,
+    then ``rec.records`` and ``rec.summary()``.  Nested, the inner block
+    records apart and the outer one resumes after it."""
+    global _recorder
+    rec, outer = SpanRecorder(), _recorder
+    _recorder = rec
+    try:
+        yield rec
+    finally:
+        _recorder = outer

@@ -12,10 +12,13 @@ is simultFit's ODE path, where an 'e0grid' ``--xs-mode`` means 'taylor'),
 warms it up, then measures, for one half-step's log-prob (``walkers / 2``
 walkers):
 
-* the stage split: each stage of the log-prob run alone, with a
-  ``torch.cuda.synchronize`` after it, host clock, mean of ``--reps``;
-  the synchronizes add a launch round trip per stage, so the sum
-  overstates the plain eval, which is timed too;
+* the stage split: the spans (``utils/profiling.py``) of ``--reps``
+  real log-prob calls, host ms an evaluation of each stage (its total
+  and its own time), once with no synchronize until the last call
+  (``stages_ms``: what the host spends enqueueing the stage) and once
+  with a synchronize after every call (``stages_sync_ms``: the same with
+  the launch queue empty at each call's start); the plain evaluation,
+  with a synchronize after it, is timed too;
 * ``run_mcmc``: ms per DE step (host clock around a synchronized
   window);
 * ``torch.profiler`` over ``--profile-steps`` DE steps: device time by
@@ -42,13 +45,7 @@ import torch
 
 from .. import sampler
 from ..models import onebd, simult
-from ..ops.cuda_poisson import poisson
-from ..ops.e0grid import (CountsRates, contract, expected_moments,
-                          fine_cell_moments, moments_from_counts)
-from ..ops.likelihoods import (box_lnprior, poisson_binned_loglike,
-                               poisson_logpmf_loglike)
-from ..ops.poisson import seed_words
-from . import data_io
+from . import data_io, profiling
 
 
 def _smi() -> str:
@@ -69,98 +66,21 @@ def _timed(fn, reps):
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def _stages(problem, thetas, obs, gen):
-    """[(name, fn)] per stage of ``problem.log_prob``; each fn stores its
-    output for the stages after it and returns it (the last one the
-    log-prob)."""
-    fwd = problem.forward
-    spec = problem.spec
-    params, scales, bg_levels = problem.split_theta(thetas)
-    out = {}
-    stages = []
-
-    def stage(name, key, fn):
-        def run():
-            out[key] = fn()
-            return out[key]
-        stages.append((name, run))
-
-    def e0grid_tail(moments_key):
-        stage("A contraction", "grid",
-              lambda: contract(fwd.e0grid, out[moments_key]))
-        if spec.cell_attenuation:
-            stage("attenuation", "grid", lambda: fwd.attenuate(out["grid"]))
-
-    if spec.sampling == "counts":
-        def moments():
-            per_run = CountsRates(*(t[:, None] for t in out["rates"]))
-            out["moments"], out["mean"] = moments_from_counts(
-                fwd.e0grid, out["counts"], per_run)
-            return out["moments"]
-
-        stage("rates (ndtr chain)", "rates", lambda: fwd.counts_rates(params))
-        stage("K1 poisson (cell counts)", "counts",
-              lambda: poisson(out["rates"].lam, seed_words(gen),
-                              n_runs=fwd.n_runs))
-        stages.append(("moments_from_counts", moments))
-        e0grid_tail("moments")
-    elif spec.sampling == "expected":
-        def moments():
-            m, mean = expected_moments(
-                fwd.e0grid, params[:, 0], params[:, 1], params[:, 2],
-                params[:, 3], spec.n_samples, spec.truncated,
-                spec.moment_closure)
-            out["moments"] = m[:, None]
-            out["mean"] = mean[:, None].expand(-1, fwd.n_runs)
-            return out["moments"]
-
-        stages.append(("expected moments (ndtr chain)", moments))
-        e0grid_tail("moments")
-    else:
-        stage("beam draw (device uniforms)", "e0",
-              lambda: fwd.sample_beam_energies(params, gen))
-        stage("e0 mean", "mean", lambda: torch.mean(out["e0"], dim=-1))
-        if spec.xs_mode == "e0grid":
-            stage("fine-cell moments (int64 scatter_add_)", "moments",
-                  lambda: fine_cell_moments(fwd.e0grid, out["e0"]))
-            e0grid_tail("moments")
-        else:
-            name = {("taylor", "rk4"): "K4 moments + Taylor contraction",
-                    ("taylor", "table"):
-                        "table lookup + moment channels + Taylor",
-                    ("exact", "rk4"):
-                        "RK4 + cross sections + K3 (row chunks)",
-                    ("exact", "table"):
-                        "table lookup + cross sections + K3 (row chunks)",
-                    }[(spec.xs_mode, spec.transport)]
-            stage(name, "grid", lambda: fwd.energy_weight_grid(out["e0"]))
-
-    def like():
-        fn = (poisson_binned_loglike if problem.likelihood == "reference"
-              else poisson_logpmf_loglike)
-        return torch.sum(fn(out["spectra"], obs.counts, mask=obs.mask),
-                         dim=-1)
-
-    def prior():
-        lo, hi = problem._bounds
-        total = box_lnprior(thetas, lo, hi, inclusive=True) + out["like"]
-        return torch.where(torch.isnan(total), -torch.inf, total)
-
-    stage("lattice + rint", "lattice",
-          lambda: fwd.lattice(out["grid"], out["mean"]))
-    stage("K2 TOF histogram", "hist",
-          lambda: fwd.tof_histogram(*out["lattice"]))
-    out["background"] = None
-    if bg_levels is not None:
-        stage("background" + (" (K1 poisson)" if spec.bg_mode == "poisson"
-                              else ""), "background",
-              lambda: fwd.background(bg_levels, gen))
-    stage("density + " + ("expo + " if spec.zero_degree == "expo" else "")
-          + "timing + scale", "spectra",
-          lambda: fwd.shape_spectra(out["hist"], scales, out["background"]))
-    stage(f"{problem.likelihood} likelihood", "like", like)
-    stage("prior + NaN guards", "logp", prior)
-    return stages
+def stage_split(logp, thetas, gen, reps, *, sync_each):
+    """Host ms an evaluation of each span of ``reps`` log-prob calls
+    (spans on; ``sync_each``: a synchronize after every call, else one
+    after the last): ``{name: {'calls', 'total_ms', 'self_ms'}}``, each
+    divided by ``reps``."""
+    with profiling.spans() as rec:
+        for _ in range(reps):
+            logp(thetas, gen)
+            if sync_each:
+                torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return {name: {"calls": s["calls"] / reps,
+                   "total_ms": s["total_ms"] / reps,
+                   "self_ms": s["self_ms"] / reps}
+            for name, s in rec.summary().items()}
 
 
 def build_problem(model="simult", hardcore=False, sampling="mc",
@@ -201,16 +121,15 @@ def measure(model="simult", hardcore=False, sampling="mc",
     problem.forward                                 # build the buffers
     build_s = time.perf_counter() - t0
     observed = data_io.synthesize_observed(9, problem, truth)
-    obs = problem.observed_runs(observed)
     logp = problem.make_log_prob_fn(observed)
     gen = torch.Generator(dev).manual_seed(1)
     p0 = problem.initial_walkers_from_observed(gen, n_walkers, observed)
     eval_gen = torch.Generator().manual_seed(2)
     half = p0[: n_walkers // 2]
 
-    stages = _stages(problem, half, obs, eval_gen)
-    split = [(name, _timed(fn, reps)) for name, fn in stages]
     whole = _timed(lambda: logp(half, eval_gen), reps)
+    split = stage_split(logp, half, eval_gen, reps, sync_each=False)
+    split_sync = stage_split(logp, half, eval_gen, reps, sync_each=True)
 
     state = sampler.init_state(p0, logp, generator=gen,
                                eval_generator=eval_gen)
@@ -264,7 +183,7 @@ def measure(model="simult", hardcore=False, sampling="mc",
         "runs": problem.n_runs, "build_seconds": build_s,
         "walkers": n_walkers, "half_step_walkers": half.shape[0],
         "draws": n_draws,
-        "stages_ms": dict(split), "stages_sum_ms": sum(t for _, t in split),
+        "stages_ms": split, "stages_sync_ms": split_sync,
         "log_prob_ms": whole, "step_ms": step_ms,
         "walker_steps_per_s": n_walkers / (step_ms / 1e3),
         "profiled_steps": profile_steps,

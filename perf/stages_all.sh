@@ -31,12 +31,14 @@ run simult_mc_rk4_exact --model simult --sampling mc --transport rk4 \
 run onebd_hardcore_counts_2 --model onebd --hardcore --sampling counts
 python - "$OUT" <<'PY'
 import glob, json, sys
-keys = ("card", "log_prob_ms", "stages_sum_ms", "step_ms", "profiled_step_ms",
+keys = ("card", "log_prob_ms", "step_ms", "profiled_step_ms",
         "walker_steps_per_s", "device_ms_per_step", "device_ops_per_step",
         "device_window_ms_per_step", "device_busy_share", "build_seconds")
 for path in sorted(glob.glob(sys.argv[1] + "/stages_*.json")):
     d = json.load(open(path))
     print(path, {k: d[k] for k in keys if k in d})
-    print(d["stages_ms"])
+    for split in ("stages_ms", "stages_sync_ms"):
+        print(split, {n: round(v["total_ms"], 4)
+                      for n, v in d[split].items()})
     print(d["top_kernels_ms_per_step"])
 PY

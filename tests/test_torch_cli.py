@@ -450,7 +450,7 @@ DEBUG = ["-device", "cpu", "-debug", "1", "-batch", "1",
 @pytest.mark.parametrize("model", ["simult", "onebd"])
 def test_profile_writes_a_trace(model, tmp_path, monkeypatch, capsys):
     """-profile DIR: the sampling phases under torch.profiler, a Chrome
-    trace in DIR and the JAX CLI's line."""
+    trace in DIR, with the port's spans in it, and the JAX CLI's line."""
     import json
     monkeypatch.chdir(tmp_path)
     cli = tcli_simult if model == "simult" else tcli_onebd
@@ -460,29 +460,31 @@ def test_profile_writes_a_trace(model, tmp_path, monkeypatch, capsys):
     trace = json.loads((tmp_path / "trace_dir" / "trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("scatter_add" in n for n in names)   # the fine-cell moments
+    assert {"mcmctof.logp", "mcmctof.k2", "mcmctof.step"} <= names
 
 
 def test_profiling_helpers(tmp_path):
     """utils/profiling.py: ``trace`` writes a Chrome trace of the block,
-    ``Throughput`` counts walker-steps per second, ``time_fn`` times the
-    first call apart from the steady state."""
+    with the spans opened in it; a span's round trip: off outside
+    ``spans()``, recorded inside it."""
     import json
-    import time
 
     from mcmctoffitting_tpu_torch.utils import profiling
     with profiling.trace(str(tmp_path / "t")) as where:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("mcmctof.test"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     assert where == str(tmp_path / "t")
     events = json.loads((tmp_path / "t" / profiling.TRACE_FILE).read_text())
-    assert any("mm" in e.get("name", "") for e in events["traceEvents"])
-    meter = profiling.Throughput(n_walkers=8)
-    time.sleep(0.01)
-    assert meter.update(5) > 0 and meter.steps == 5
-    calls = []
-    out = profiling.time_fn(lambda x: calls.append(x) or torch.ones(3), 2,
-                            n_iters=4)
-    assert set(out) == {"first_s", "steady_s"} and len(calls) == 5
-    assert out["first_s"] >= 0 and out["steady_s"] >= 0
+    names = {e.get("name", "") for e in events["traceEvents"]}
+    assert any("mm" in n for n in names) and "mcmctof.test" in names
+    with profiling.spans() as rec:
+        with profiling.span("mcmctof.test"):
+            torch.ones(3)
+    assert [r.name for r in rec.records] == ["mcmctof.test"]
+    assert rec.summary()["mcmctof.test"]["calls"] == 1
+    with profiling.span("mcmctof.test"):
+        torch.ones(3)
+    assert len(rec.records) == 1
 
 
 def _fake_chain(path, n_steps=10, n_walkers=8, n_params=6, seed=0):

@@ -564,14 +564,27 @@ STAGE_CONFIGS = [
 ]
 
 
+def _stage_spans(spec, background: bool) -> list:
+    """The stage spans of one log-prob evaluation, in the forward's
+    order."""
+    grid = {"counts": ["rates", "k1_cells", "moments", "contract"],
+            "expected": ["expected"],
+            "mc": ["beam_draw", "energy_grid"]}[spec.sampling]
+    names = (["prior"] + grid + ["lattice"]
+             + (["background"] if background else [])
+             + ["k2", "shape", "likelihood"])
+    return ["mcmctof." + n for n in names]
+
+
 @pytest.mark.parametrize("config", STAGE_CONFIGS, ids=lambda c: "-".join(
     str(v) for v in c.values()))
 def test_stage_split_composes_to_the_log_prob(config, monkeypatch):
-    """The stages that ``utils/stages.py`` times one by one, run in order
-    with one seed, give the log-prob of ``problem.log_prob`` with that
-    seed, bit for bit: the split leaves no stage out and draws its seeds in
+    """The stage split of ``utils/stages.py`` is read from the spans of
+    real ``problem.log_prob`` calls: with the spans on, the log-prob is
+    the one with them off, bit for bit, and each stage span of the
+    configuration runs once an evaluation, inside ``mcmctof.logp``, in
     the forward's order."""
-    from mcmctoffitting_tpu_torch.utils import stages
+    from mcmctoffitting_tpu_torch.utils import profiling, stages
     problem, truth = stages.build_problem(n_draws=2048, device="cpu",
                                           likelihood="poisson",
                                           fine_grid=N_FINE, **config)
@@ -579,13 +592,20 @@ def test_stage_split_composes_to_the_log_prob(config, monkeypatch):
     obs = problem.observed_runs(obs_arrays)
     p0 = problem.initial_walkers_from_observed(
         torch.Generator().manual_seed(1), 4, obs_arrays)
-    names, fns = zip(*stages._stages(problem, p0, obs,
-                                     torch.Generator().manual_seed(5)))
-    assert len(set(names)) == len(names)
-    if config["model"] == "onebd":
-        assert "attenuation" in names or config.get("xs_mode") == "exact"
-        assert any(n.startswith("background (K1") for n in names)
-        assert "density + expo + timing + scale" in names
-    got = [fn() for fn in fns][-1]
     want = problem.log_prob(p0, torch.Generator().manual_seed(5), obs)
+    with profiling.spans() as rec:
+        got = problem.log_prob(p0, torch.Generator().manual_seed(5), obs)
+        problem.log_prob(p0, torch.Generator().manual_seed(6), obs)
     assert torch.equal(got, want) and torch.all(torch.isfinite(want))
+    expect = _stage_spans(problem.spec, config["model"] == "onebd")
+    if config["model"] == "onebd":
+        assert "mcmctof.background" in expect
+    by_start = sorted(rec.records, key=lambda r: r.start_ns)
+    stages_of = [r.name for r in by_start if r.name != "mcmctof.logp"]
+    assert stages_of == expect * 2
+    summary = rec.summary()
+    assert summary["mcmctof.logp"]["calls"] == 2
+    assert all(summary[n]["calls"] == 2 for n in expect)
+    assert {summary[n]["parent"] for n in expect} == {"mcmctof.logp"}
+    stages_ms = sum(summary[n]["total_ms"] for n in expect)
+    assert stages_ms <= summary["mcmctof.logp"]["total_ms"]
