@@ -203,6 +203,16 @@ Then posterior parity with the JAX package (before phase 23):
      beside it); (c) one seed of PT -model tof (the reference's cut of
      its steps): ln Z within 4 noise of the JAX seeds' and the cold
      chain's dz table against theirs.
+Then the counts estimator's rate stage (after phase 3b):
+ 25. csrc/counts_rates.cu against ops/e0grid.py::counts_lambdas at both
+     counts presets' half-step shapes (simultFit: 128 walkers, F = 512,
+     truncated, the parameters a column view of the walkers; oneBD
+     hardcore: 128, F = 1,024, untruncated): every field the same bits;
+     the kernel's device time (100 launches in a replayed CUDA graph)
+     beside its bytes bound and the plain stage's device time (its
+     operations in a replayed graph), and the host's enqueue of each;
+     in a segment of 10 DE steps with the spans on, one launch for every
+     mcmctof.logp call.
 Every initial log-prob of the mc fits must be finite.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
@@ -241,6 +251,7 @@ from mcmctoffitting_tpu_torch.ops import cuda_build, cuda_hist, cuda_transport
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
 from mcmctoffitting_tpu_torch.ops import e0grid, stopping
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import philox_cuda, poisson
+from mcmctoffitting_tpu_torch.ops.cuda_rates import counts_rates
 from mcmctoffitting_tpu_torch.ops.cuda_tof import (
     tof_hist_backward_variant, tof_hist_segments, tof_hist_segments_backward,
     tof_hist_segments_bwd_plain, tof_hist_segments_plain)
@@ -248,6 +259,7 @@ from mcmctoffitting_tpu_torch.parallel import distributed as parallel_dist
 from mcmctoffitting_tpu_torch.parallel import launch as parallel_launch
 from mcmctoffitting_tpu_torch.parallel import mesh as parallel_mesh
 from mcmctoffitting_tpu_torch.utils import chain_io, data_io, devtime, parity
+from mcmctoffitting_tpu_torch.utils import profiling
 from mcmctoffitting_tpu_torch.utils import ppc as ppc_mod
 
 N_WALKERS, N_RUNS, N_DRAWS = 256, 4, 200_000
@@ -467,6 +479,84 @@ def phase_graph(dev, rates_w, n_runs, base, draws, forward):
         "version for each seed, K2 equals the uncaptured call")
 
 
+def phase_counts_rates(dev, smi):
+    """Phase 25: the rate stage's kernel against counts_lambdas at the
+    half-step shapes of both counts presets, bits and device times.
+    Returns {preset: kernel ms, plain ms, bound ms, enqueue us}."""
+    out = {}
+    for name, spec, problem_of, truth in (
+            ("simultfit", simult.default_spec(N_DRAWS, sampling="counts"),
+             simult_problem, np.concatenate([simult.GUESS_SHARED,
+                                             np.full(N_RUNS, 5.0e4)])),
+            ("onebd_hardcore", onebd.default_spec(N_DRAWS, hardcore=True,
+                                                  sampling="counts"),
+             onebd_problem, data_io.ONEBD_TRUTH)):
+        problem = problem_of(spec, "poisson", dev)
+        forward = problem.forward
+        observed = data_io.synthesize_observed(9, problem, truth)
+        p0 = problem.initial_walkers_from_observed(
+            torch.Generator(dev).manual_seed(1), N_WALKERS, observed)
+        params = problem.shared_params(p0[:N_WALKERS // 2])
+        grid = forward.e0grid
+        args = (spec.n_samples, spec.truncated, spec.moment_closure)
+
+        def kernel():
+            return counts_rates(grid, params, *args)
+
+        def plain():
+            return e0grid.counts_lambdas(grid, params[:, 0], params[:, 1],
+                                         params[:, 2], params[:, 3], *args)
+
+        launches = counts_rates.launches
+        got, want = kernel(), plain()
+        require(counts_rates.launches == launches + 1,
+                "counts_rates: one launch a call")
+        err = 0.0
+        for field, g, w in zip(e0grid.CountsRates._fields, got, want):
+            require(g.shape == w.shape, f"phase 25 ({name}): {field} shape")
+            # NaN equal to NaN; a NaN against a number, or infinities that
+            # differ, count as an infinite error
+            same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+            gap = torch.nan_to_num((g - w).abs(), nan=float("inf"))
+            err = max(err, torch.where(same, 0.0, gap).max().item())
+        require(err == 0.0, f"phase 25 ({name}): every field the plain "
+                f"version's values (max |got - want| {err})")
+        w_, f = params.shape[0], grid.n_fine
+        n_bytes = 4 * (w_ * (5 * f + 5) + 4 * w_ + (f + 1))
+        b_ms, b_by = bound(n_bytes, 0)
+        k_ms = devtime.graph_ms(kernel)
+        p_ms = devtime.graph_ms(plain, launches=5)
+        k_us, p_us = devtime.enqueue_us(kernel), devtime.enqueue_us(
+            plain, calls=20)
+        # a segment of 10 DE steps with the spans on: one launch for
+        # every mcmctof.logp call
+        logp = problem.make_log_prob_fn(observed)
+        state = sampler.init_state(
+            p0, logp, generator=torch.Generator(dev).manual_seed(2),
+            eval_generator=torch.Generator().manual_seed(3))
+        launches = counts_rates.launches
+        with profiling.spans() as rec:
+            sampler.run_mcmc(state, 10, logp, move="de")
+        torch.cuda.synchronize()
+        n_logp = rec.summary()["mcmctof.logp"]["calls"]
+        n_launched = counts_rates.launches - launches
+        require(n_launched == n_logp, f"phase 25 ({name}): {n_launched} "
+                f"launches in {n_logp} mcmctof.logp calls")
+        out[name] = {"shape": [w_, f], "max_abs_err": err,
+                     "kernel_ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "enqueue_us": k_us,
+                     "plain_enqueue_us": p_us, "segment_logp_calls": n_logp,
+                     "segment_launches": n_launched}
+        log(f"phase 25 ({smi}): {name} rates ({w_}, F = {f}, truncated "
+            f"{spec.truncated}, {spec.moment_closure}): max |got - want| "
+            f"{err} over every field; kernel {k_ms:.5f} ms, plain stage {p_ms:.5f} ms "
+            f"(device), bound {b_ms:.5f} ms ({b_by}, {n_bytes} B), "
+            f"enqueue {k_us:.1f} us (plain {p_us:.1f} us); a segment of 10 "
+            f"DE steps, spans on: {n_launched} launches, {n_logp} "
+            f"mcmctof.logp calls")
+    return out
+
+
 def in_range_bins(e, bins):
     """Bin index of every energy, -1 outside [lo, hi] (the moments'
     binning)."""
@@ -613,7 +703,7 @@ def add_counts(*used):
 
 def reset_counts():
     for fn in (poisson, tof_hist_segments, cuda_hist.weighted_histogram,
-               cuda_transport.transport_moments):
+               cuda_transport.transport_moments, counts_rates):
         fn.launches = 0
     tof_hist_segments.backward_launches = 0
 
@@ -623,7 +713,8 @@ def read_counts():
             "tof_hist": tof_hist_segments.launches,
             "K2-bwd": tof_hist_segments.backward_launches,
             "weighted_hist": cuda_hist.weighted_histogram.launches,
-            "transport_moments": cuda_transport.transport_moments.launches}
+            "transport_moments": cuda_transport.transport_moments.launches,
+            "counts_rates": counts_rates.launches}
 
 
 def gpu_vs_cpu_mc(problem, cpu_problem, thetas, gen):
@@ -851,8 +942,10 @@ def phase_onebd(dev, smi, rate, acc, launches):
         log(f"phase 10e: launches during the {likelihood} fit: "
             f"{used[likelihood]}")
         require(used[likelihood]["poisson"] == 2 * n_evals
-                and used[likelihood]["tof_hist"] == n_evals,
-                "K1 launched twice and K2 once per log-prob evaluation")
+                and used[likelihood]["tof_hist"] == n_evals
+                and used[likelihood]["counts_rates"] == n_evals,
+                "K1 launched twice, K2 and the rate kernel once per "
+                "log-prob evaluation")
     launches["onebd_hardcore_counts"] = add_counts(*used.values())
 
     key = "onebd_mc_default_reference"
@@ -2804,6 +2897,7 @@ def main():
     base, draws = base.contiguous(), draws.contiguous()
     k2_err = phase_tof(dev, base, draws, forward)
     phase_graph(dev, rates.lam, N_RUNS, base, draws, forward)
+    rates_out = phase_counts_rates(dev, smi)
 
     # phases 4-5: K4 and K3 on one half-step of the mc path (128 walkers x
     # 4 runs x 200k initial energies from the forward's own draw)
@@ -2992,6 +3086,9 @@ def main():
     require(launches["counts"]["poisson"] > 0
             and launches["counts"]["tof_hist"] > 0,
             "K1 and K2 launched on the counts path")
+    require(launches["counts"]["counts_rates"]
+            == launches["counts"]["log_prob_evaluations"],
+            "the rate kernel launched once per evaluation")
 
     # phase 8: the mc path on the ODE transport
     small = p0[:8]
@@ -3201,6 +3298,26 @@ def main():
             for run in GRAD_RUNS},
         "gradient_gpu_vs_cpu_rel_l2": grad_rel,
         "launches_parity": launches["parity_simult_expected"]["K2-bwd"]})
+    # the rate stage's kernel: no TPU original (the JAX package leaves the
+    # stage to XLA, which fuses it); its launches on the counts paths of
+    # phases 7b and 10e, each beside that path's log-prob evaluations, and
+    # its error at simultFit's shapes in phase 25
+    kernels.append({
+        "name": "counts_rates", "route": "cuda",
+        "source": "mcmctoffitting_tpu_torch/csrc/counts_rates.cu",
+        "replaces": None, "launches": launches["counts"]["counts_rates"],
+        "log_prob_evaluations": launches["counts"]["log_prob_evaluations"],
+        "launches_onebd_hardcore_counts":
+            launches["onebd_hardcore_counts"]["counts_rates"],
+        "log_prob_evaluations_onebd_hardcore_counts":
+            launches["onebd_hardcore_counts"]["log_prob_evaluations"],
+        "max_abs_err": rates_out["simultfit"]["max_abs_err"],
+        "ms": rates_out["simultfit"]["kernel_ms"],
+        "plain_ms": rates_out["simultfit"]["plain_ms"],
+        "bound_ms": rates_out["simultfit"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "enqueue_us": rates_out["simultfit"]["enqueue_us"],
+        "shape": rates_out["simultfit"]["shape"],
+        "at_onebd_shapes": rates_out["onebd_hardcore"]})
     # phase 18d, last: -profile in a subprocess of its own
     profile_kernels = phase_profile()
     script_s = time.perf_counter() - script_t0

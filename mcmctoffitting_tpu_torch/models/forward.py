@@ -51,12 +51,13 @@ from ..config import Binning, cell_attenuation_coeffs
 from ..constants import CellGeometry, masses
 from ..ops.cuda_hist import weighted_histogram
 from ..ops.cuda_poisson import poisson
+from ..ops.cuda_rates import counts_rates
 from ..ops.cuda_tof import tof_hist_segments
 from ..ops.cuda_transport import (MomentBins, energy_moments,
                                   transport_moments)
 from ..ops.e0grid import (CountsRates, E0Grid, E0GridTable, contract,
-                          counts_lambdas, expected_e0_mean, expected_grid,
-                          fine_cell_moments, moments_from_counts)
+                          expected_e0_mean, expected_grid, fine_cell_moments,
+                          moments_from_counts)
 from ..ops.histogram import WindowConstants, window_constants
 from ..ops.interp import UniformCubicSpline1D, eval_uniform_spline
 from ..ops.kinematics import dd_neutron_energy_np, tof, tof_np
@@ -473,11 +474,11 @@ class TofForward(torch.nn.Module):
 
     def counts_rates(self, params: torch.Tensor):
         """Poisson rates and conditional moments per walker: params
-        (W, 4) = (beamE, eLoss, scale, s) -> ops.e0grid.CountsRates."""
+        (W, 4) = (beamE, eLoss, scale, s) -> ops.e0grid.CountsRates, from
+        one kernel on the card (``ops/cuda_rates.py``)."""
         spec = self.spec
-        return counts_lambdas(self.e0grid, params[:, 0], params[:, 1],
-                              params[:, 2], params[:, 3], spec.n_samples,
-                              spec.truncated, spec.moment_closure)
+        return counts_rates(self.e0grid, params, spec.n_samples,
+                            spec.truncated, spec.moment_closure)
 
     def _counts_grid_and_mean(self, params, generator, walker_offset=0,
                               walker_blocks=None):

@@ -80,6 +80,11 @@ _SIGNATURES = {
     + [_F] * 7 + [_I, _P],
     # n_x, n_bins -> spans per tile (n_x: one tile; 0: refused)
     "mcmctof_transport_moments_tile": [_I, _I],
+    # params, row stride, column stride, edges, t_edges, out, n_walkers,
+    # n_fine, truncated, exact, t_ref, 1 / t_scale, e0_lo, e0_hi, n_samples,
+    # h * h / 12, 0.1 * h * h, device, stream
+    "mcmctof_counts_rates": [_P, _L, _L, _P, _P, _P] + [_I] * 4 + [_F] * 7
+    + [_I, _P],
     # device, stream: an empty kernel (the launch floor of utils/devtime.py)
     "mcmctof_empty_kernel": [_I, _P],
 }

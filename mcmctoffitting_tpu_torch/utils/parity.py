@@ -76,11 +76,12 @@ CASES = {
     "simult_counts": dict(model="simult", sampling="counts",
                           transport="table", xs_mode="e0grid",
                           chain=True, thetas_from="simult_counts",
-                          kernels=("poisson", "tof_hist")),
+                          kernels=("counts_rates", "poisson", "tof_hist")),
     "onebd_hardcore_counts": dict(model="onebd", sampling="counts",
                                   hardcore=True, chain=True,
                                   thetas_from="onebd_hardcore_counts",
-                                  kernels=("poisson", "tof_hist")),
+                                  kernels=("counts_rates", "poisson",
+                                           "tof_hist")),
     "simult_mc": dict(model="simult", sampling="mc", transport="table",
                       xs_mode="e0grid", chain=False,
                       thetas_from="simult_counts", kernels=("tof_hist",)),
@@ -101,7 +102,8 @@ CASES = {
                                    transport="table", xs_mode="e0grid",
                                    likelihood="reference", chain=False,
                                    thetas_from="simult_counts",
-                                   kernels=("poisson", "tof_hist")),
+                                   kernels=("counts_rates", "poisson",
+                                            "tof_hist")),
     "simple_v2": dict(model="simple", simple_model="v2", sampling="mc",
                       walkers=100, chain=True, thetas_from="simple_v2",
                       kernels=("weighted_hist",)),
@@ -122,7 +124,8 @@ PT_CASES = {
     "pt_shifting_gaussian_tof": dict(model="tof", temps=20, walkers=100,
                                      burnin=100, steps=300, thin=3,
                                      seeds=3,
-                                     kernels=("poisson", "tof_hist")),
+                                     kernels=("counts_rates", "poisson",
+                                              "tof_hist")),
 }
 # the evidence gate: |mean ln Z_port - mean ln Z_JAX| < LN_Z_SIGMAS x
 # sqrt(var_J / n_J + var_P / n_P), the variances over each package's seeds

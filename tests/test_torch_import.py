@@ -379,5 +379,5 @@ def test_build_key_covers_every_source():
     from mcmctoffitting_tpu_torch.ops import cuda_build
     names = {p.name for p in cuda_build._sources()}
     assert {"poisson.cu", "tof_hist.cu", "philox.cuh", "weighted_hist.cu",
-            "transport_moments.cu"} <= names
+            "transport_moments.cu", "counts_rates.cu"} <= names
     assert cuda_build.source_hash() == cuda_build.source_hash()
