@@ -542,10 +542,11 @@ class TofForward(torch.nn.Module):
         'e0grid': the per-sample fine-cell moments (..., 4, F), contracted
         with the A operator.  'taylor': the moment histograms (..., M, 4,
         Be) of the transported energies, from kernel K4 on the ODE path
-        and from the table lookup and the plain moment channels on
-        ``transport='table'`` (K4 fuses the RK4 and cannot take table
-        energies), contracted with the Taylor coefficients over the
-        channel axis.  'exact': the transport, the cross section of every
+        (span ``mcmctof.k4``) and from the table lookup and the plain
+        moment channels on ``transport='table'`` (K4 fuses the RK4 and
+        cannot take table energies), contracted with the Taylor
+        coefficients over the channel axis (span ``mcmctof.taylor``, with
+        the attenuation).  'exact': the transport, the cross section of every
         transported energy, and kernel K3 over the (..., M) rows; rows go
         in chunks of at most ``_EXACT_CHUNK`` (row, x, sample) elements,
         which bounds the peak memory of the transported energies (4.1 GB
@@ -560,20 +561,23 @@ class TofForward(torch.nn.Module):
         n_x, eb = spec.x_binning.n, spec.ed_binning
         if spec.xs_mode == "taylor":
             if spec.transport == "rk4":
-                moments = transport_moments(rows, self.rk4, self.moment_bins)
+                with span("mcmctof.k4"):
+                    moments = transport_moments(rows, self.rk4,
+                                                self.moment_bins)
             else:
                 moments = energy_moments(self.transport, rows, n_x,
                                          self.moment_bins)
-            grid = torch.sum(moments * self.taylor, dim=-2)
-        else:
-            grid = torch.empty((rows.shape[0], n_x, eb.n),
-                               dtype=torch.float32, device=rows.device)
-            step = exact_rows_per_chunk(n_x, n)
-            for start in range(0, rows.shape[0], step):
-                e_at_x = self.transport(rows[start:start + step])
-                w = eval_uniform_spline(spec.xs, e_at_x, self.xs_coeffs)
-                grid[start:start + step] = weighted_histogram(
-                    e_at_x, eb.lo, eb.hi, eb.n, w)
+            with span("mcmctof.taylor"):
+                grid = torch.sum(moments * self.taylor, dim=-2)
+                return self.attenuate(grid.reshape(lead + (n_x, eb.n)))
+        grid = torch.empty((rows.shape[0], n_x, eb.n), dtype=torch.float32,
+                           device=rows.device)
+        step = exact_rows_per_chunk(n_x, n)
+        for start in range(0, rows.shape[0], step):
+            e_at_x = self.transport(rows[start:start + step])
+            w = eval_uniform_spline(spec.xs, e_at_x, self.xs_coeffs)
+            grid[start:start + step] = weighted_histogram(
+                e_at_x, eb.lo, eb.hi, eb.n, w)
         return self.attenuate(grid.reshape(lead + (n_x, eb.n)))
 
     def _mc_grid_and_mean(self, params, generator):

@@ -576,6 +576,15 @@ def _stage_spans(spec, background: bool) -> list:
     return ["mcmctof." + n for n in names]
 
 
+def _energy_grid_spans(spec) -> list:
+    """The spans inside ``mcmctof.energy_grid``, in order: K4 on the ODE
+    path and the Taylor contraction on 'taylor'."""
+    if spec.sampling != "mc" or spec.xs_mode != "taylor":
+        return []
+    names = (["k4"] if spec.transport == "rk4" else []) + ["taylor"]
+    return ["mcmctof." + n for n in names]
+
+
 @pytest.mark.parametrize("config", STAGE_CONFIGS, ids=lambda c: "-".join(
     str(v) for v in c.values()))
 def test_stage_split_composes_to_the_log_prob(config, monkeypatch):
@@ -600,12 +609,15 @@ def test_stage_split_composes_to_the_log_prob(config, monkeypatch):
     expect = _stage_spans(problem.spec, config["model"] == "onebd")
     if config["model"] == "onebd":
         assert "mcmctof.background" in expect
+    inner = _energy_grid_spans(problem.spec)
+    at = expect.index("mcmctof.energy_grid") + 1 if inner else 0
     by_start = sorted(rec.records, key=lambda r: r.start_ns)
     stages_of = [r.name for r in by_start if r.name != "mcmctof.logp"]
-    assert stages_of == expect * 2
+    assert stages_of == (expect[:at] + inner + expect[at:]) * 2
     summary = rec.summary()
     assert summary["mcmctof.logp"]["calls"] == 2
-    assert all(summary[n]["calls"] == 2 for n in expect)
+    assert all(summary[n]["calls"] == 2 for n in expect + inner)
     assert {summary[n]["parent"] for n in expect} == {"mcmctof.logp"}
+    assert all(summary[n]["parent"] == "mcmctof.energy_grid" for n in inner)
     stages_ms = sum(summary[n]["total_ms"] for n in expect)
     assert stages_ms <= summary["mcmctof.logp"]["total_ms"]
