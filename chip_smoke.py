@@ -1036,18 +1036,30 @@ def run_cli(module, argv, where, label):
     """One in-process run of a CLI in ``where``; returns (result dict,
     printed text, forward evaluations, launch counts), the counts set to 0
     just before it and read just after.  A forward evaluation is a call
-    of the problem's ``run_spectra``: one per log-prob evaluation, and one
-    when the CLI synthesises its data."""
-    evals = [0]
+    of the problem's ``log_prob`` (on counts a replay of its captured graph
+    from a shape's second call on, which calls no Python stage), and a
+    call of its ``run_spectra`` outside one (the CLI synthesising its
+    data)."""
+    evals, inside = [0], [0]
     run_spectra = problem_mod.JointFitProblem.run_spectra
+    log_prob = problem_mod.JointFitProblem.log_prob
 
     def counted(self, *args, **kwargs):
-        evals[0] += 1
+        evals[0] += not inside[0]
         return run_spectra(self, *args, **kwargs)
+
+    def counted_log_prob(self, *args, **kwargs):
+        evals[0] += 1
+        inside[0] += 1
+        try:
+            return log_prob(self, *args, **kwargs)
+        finally:
+            inside[0] -= 1
 
     cwd = os.getcwd()
     tee = _Tee(sys.stdout)
     problem_mod.JointFitProblem.run_spectra = counted
+    problem_mod.JointFitProblem.log_prob = counted_log_prob
     os.chdir(where)
     reset_counts()
     try:
@@ -1058,6 +1070,7 @@ def run_cli(module, argv, where, label):
     finally:
         os.chdir(cwd)
         problem_mod.JointFitProblem.run_spectra = run_spectra
+        problem_mod.JointFitProblem.log_prob = log_prob
     log(f"{label}: {evals[0]} forward evaluations; launches {used}")
     return out, tee.buf.getvalue(), evals[0], used
 

@@ -64,7 +64,7 @@ from ..ops.kinematics import dd_neutron_energy_np, tof, tof_np
 from ..ops.pdfs import (beam_energies_from_uniforms, beam_energies_redrawn,
                         device_normals, draw_beam_uniforms,
                         skewnorm_from_normals)
-from ..ops.poisson import seed_words
+from ..ops.poisson import launch_seed
 from ..ops.stopping import (BetheStopping, StoppingTable,
                             bethe_closed_form_constants, eval_stopped,
                             rk4_constants, rk4_transport)
@@ -488,7 +488,7 @@ class TofForward(torch.nn.Module):
             # every run of a walker draws from the walker's rates: the
             # kernel reads them once per run, no copy along the run axis
             per_walker = self.n_runs * rates.lam.shape[-1]
-            counts = poisson(rates.lam, seed_words(generator),
+            counts = poisson(rates.lam, launch_seed(generator),
                              n_runs=self.n_runs,
                              **k1_counters(walker_offset, walker_blocks,
                                            per_walker))       # (W, R, F+2)
@@ -656,7 +656,7 @@ class TofForward(torch.nn.Module):
         rates = bg_levels[..., None].expand(
             bg_levels.shape + (self.pad_mask.shape[-1],))
         if self.spec.bg_mode == "poisson":
-            rates = poisson(rates.contiguous(), seed_words(generator),
+            rates = poisson(rates.contiguous(), launch_seed(generator),
                             **k1_counters(walker_offset, walker_blocks,
                                           rates[0].numel()))
         return torch.where(self.pad_mask, rates, 0.0)
@@ -711,10 +711,13 @@ class TofForward(torch.nn.Module):
         """All runs of all walkers: beam parameters (W, 4), run scales
         (W, R) and background levels (W, R) or None -> (W, R, n_pad).  The
         host ``generator`` seeds first the grid's draw, then (only with a
-        Poisson background) the background's.  ``get_pdf=False`` keeps the
-        raw TOF sums (no density normalisation).  ``return_spectra`` returns
-        the tuple (spectra, normalised (x, eD) grids (W, R or 1, M, Be),
-        draw counts (W, R, M, Be)).  ``walker_offset`` (the index of the
+        Poisson background) the background's; on counts it may be an
+        ``ops.poisson.DeviceSeeds``, whose rows K1 reads in the same order
+        (a captured log-prob, ``models/logp_graph.py``).
+        ``get_pdf=False`` keeps the raw TOF sums (no density
+        normalisation).  ``return_spectra`` returns the tuple (spectra,
+        normalised (x, eD) grids (W, R or 1, M, Be), draw counts (W, R, M,
+        Be)).  ``walker_offset`` (the index of the
         first walker in a larger batch) and ``walker_blocks``: see
         :func:`k1_counters`; the K1 draws are then those rows of the
         larger batch's."""

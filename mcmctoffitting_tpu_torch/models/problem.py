@@ -21,6 +21,7 @@ from ..ops.likelihoods import (box_lnprior, poisson_binned_loglike,
 from ..utils.profiling import span
 from .forward import (ForwardSpec, ForwardTables, TofForward, resolve_device,
                       single_run_spectrum)
+from .logp_graph import GraphCache, graphable, log_prob_graph
 
 
 class ObservedRuns(NamedTuple):
@@ -76,6 +77,12 @@ class JointFitProblem:
     def forward(self) -> TofForward:
         return TofForward(self.spec, self.standoffs, self.windows,
                           device=self.device, tables=self._tables)
+
+    @functools.cached_property
+    def logp_graphs(self) -> GraphCache:
+        """The captured log-probs of :meth:`log_prob` by key
+        (``models/logp_graph.py``)."""
+        return GraphCache()
 
     def _f32(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values), dtype=torch.float32,
@@ -175,17 +182,32 @@ class JointFitProblem:
         still runs for them: the batch has one shape), and NaN -> -inf.
         ``walker_offset``, the global index of the batch's first walker,
         and ``walker_blocks`` place the batch in a larger one (a shard):
-        K1 then draws that batch's numbers for these rows."""
+        K1 then draws that batch's numbers for these rows.  On the card a
+        counts evaluation that needs no gradient is a replay of a CUDA
+        graph of :meth:`log_prob_eager` (``models/logp_graph.py``): the
+        same bits, the host generator left where the eager path leaves
+        it."""
         with span("mcmctof.logp"):
-            with span("mcmctof.prior"):
-                lo, hi = self._bounds
-                prior = box_lnprior(thetas, lo, hi, inclusive=True)
-            total = prior + self.log_like(thetas, generator, observed,
-                                          walker_offset=walker_offset,
-                                          walker_blocks=walker_blocks)
-            return torch.where(torch.isneginf(prior), -torch.inf,
-                               torch.where(torch.isnan(total), -torch.inf,
-                                           total))
+            if graphable(self.spec, thetas):
+                return log_prob_graph(self, thetas, generator, observed,
+                                      walker_offset=walker_offset,
+                                      walker_blocks=walker_blocks)
+            return self.log_prob_eager(thetas, generator, observed,
+                                       walker_offset=walker_offset,
+                                       walker_blocks=walker_blocks)
+
+    def log_prob_eager(self, thetas, generator, observed: ObservedRuns, *,
+                       walker_offset: int = 0, walker_blocks=None):
+        """:meth:`log_prob`, its operations enqueued one by one."""
+        with span("mcmctof.prior"):
+            lo, hi = self._bounds
+            prior = box_lnprior(thetas, lo, hi, inclusive=True)
+        total = prior + self.log_like(thetas, generator, observed,
+                                      walker_offset=walker_offset,
+                                      walker_blocks=walker_blocks)
+        return torch.where(torch.isneginf(prior), -torch.inf,
+                           torch.where(torch.isnan(total), -torch.inf,
+                                       total))
 
     def make_log_prob_fn(self, observed):
         """Closure (thetas (W, D), host generator) -> (W,) for the

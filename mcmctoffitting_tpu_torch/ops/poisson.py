@@ -44,6 +44,49 @@ def seed_words(generator: torch.Generator) -> tuple[int, int]:
     return int(words[0]), int(words[1])
 
 
+class DeviceSeeds:
+    """Seed words in device memory, taken where a host generator would be.
+
+    A log-prob captured in a CUDA graph (``models/logp_graph.py``) hands
+    this to the forward in place of its host generator: each launch that
+    would draw two words (:func:`launch_seed`) takes the next row of
+    ``words`` ((SLOTS, 2) int64, read by K1 when it runs) instead.
+    :meth:`refill` writes fresh words into the rows before a replay."""
+
+    SLOTS = 4          # K1 launches of one evaluation: 1 or 2 on counts
+
+    def __init__(self, device):
+        self.words = torch.zeros((self.SLOTS, 2), dtype=torch.int64,
+                                 device=device)
+        self.taken = 0
+        self._cells = [(row[0], row[1]) for row in self.words]
+
+    def take(self) -> torch.Tensor:
+        """The next row: the seed tensor of one K1 launch."""
+        if self.taken == len(self._cells):
+            raise RuntimeError(f"DeviceSeeds: all {self.taken} slots taken")
+        row = self.words[self.taken]
+        self.taken += 1
+        return row
+
+    def refill(self, generator: torch.Generator, n: int) -> None:
+        """Rows 0..n-1 from ``n`` calls of :func:`seed_words` on the host
+        ``generator``, in order: each word by a ``fill_`` on the current
+        stream, with no synchronize and no host-to-device copy."""
+        for w0, w1 in self._cells[:n]:
+            a, b = seed_words(generator)
+            w0.fill_(a)
+            w1.fill_(b)
+
+
+def launch_seed(source) -> tuple[int, int] | torch.Tensor:
+    """The seed of one K1 launch: two words drawn from a host generator
+    (:func:`seed_words`), or the next row of a :class:`DeviceSeeds`."""
+    if isinstance(source, DeviceSeeds):
+        return source.take()
+    return seed_words(source)
+
+
 def counter_indices(n: int, offset: int = 0, blocks=None, *,
                     device=None) -> torch.Tensor:
     """The Philox counters of the ``n`` elements of a draw: ``offset + i``,

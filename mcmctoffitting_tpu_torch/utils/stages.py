@@ -18,7 +18,10 @@ walkers):
   (``stages_ms``: what the host spends enqueueing the stage) and once
   with a synchronize after every call (``stages_sync_ms``: the same with
   the launch queue empty at each call's start); the plain evaluation,
-  with a synchronize after it, is timed too;
+  with a synchronize after it, is timed too.  A counts evaluation on the
+  card replays a captured graph (``models/logp_graph.py``): its stages
+  open at the capture, and the calls measured show ``mcmctof.logp`` and
+  ``mcmctof.logp_graph`` alone;
 * ``run_mcmc``: ms per DE step (host clock around a synchronized
   window);
 * ``torch.profiler`` over ``--profile-steps`` DE steps: device time by

@@ -314,12 +314,14 @@ def test_log_prob_equals_the_plain_rates_bit_for_bit(dev, model,
                                                      monkeypatch):
     """One half-step's log-prob of each preset at a fixed seed: the kernel
     launched once, and the log-probs those of the same evaluation with the
-    rates from counts_lambdas."""
+    rates from counts_lambdas (each a problem's first evaluation at its
+    shape, which runs eagerly, not from a captured graph)."""
     problem, obs, thetas = _problem(model, dev)
     launches = counts_rates.launches
     got = problem.log_prob(thetas, torch.Generator().manual_seed(7), obs)
     assert counts_rates.launches == launches + 1
     monkeypatch.setattr(forward_mod, "counts_rates", _plain)
+    problem, obs, thetas = _problem(model, dev)
     want = problem.log_prob(thetas, torch.Generator().manual_seed(7), obs)
     assert counts_rates.launches == launches + 1
     assert torch.isfinite(want).float().mean().item() > 0.9
