@@ -211,9 +211,13 @@ Then the counts estimator's rate stage (after phase 3b):
      the kernel's device time (100 launches in a replayed CUDA graph)
      beside its bytes bound and the plain stage's device time (its
      operations in a replayed graph), and the host's enqueue of each;
-     in a segment of 10 DE steps with the spans on, one launch for every
-     mcmctof.logp call.
+     in a segment of 10 DE steps, one launch for every forward
+     evaluation.
 Every initial log-prob of the mc fits must be finite.
+The launch checks count a forward evaluation where the stages run
+(counting_evaluations): a counts log-prob on the card replays a captured
+CUDA graph from a shape's second call on, and a replay calls no kernel
+wrapper, so it adds to no launch counter.
 The last three lines: the per-kernel JSON summary, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
 """
@@ -233,7 +237,6 @@ import numpy as np
 import torch
 
 from mcmctoffitting_tpu_torch import parallel, sampler
-from mcmctoffitting_tpu_torch.cli import _driver as cli_driver
 from mcmctoffitting_tpu_torch.cli import csi_onebd as cli_onebd
 from mcmctoffitting_tpu_torch.cli import plot_chain as cli_plot_chain
 from mcmctoffitting_tpu_torch.cli import ppc as cli_ppc
@@ -245,6 +248,7 @@ from mcmctoffitting_tpu_torch.compat import emcee as emcee_shim
 from mcmctoffitting_tpu_torch.models import (csi2016, onebd, simple, simult,
                                              templates)
 from mcmctoffitting_tpu_torch.models import problem as problem_mod
+from mcmctoffitting_tpu_torch.models.logp_graph import log_prob_graph
 from mcmctoffitting_tpu_torch.models import shifting_gaussian as sg_model
 from mcmctoffitting_tpu_torch.models.forward import exact_rows_per_chunk
 from mcmctoffitting_tpu_torch.ops import cuda_build, cuda_hist, cuda_transport
@@ -259,7 +263,6 @@ from mcmctoffitting_tpu_torch.parallel import distributed as parallel_dist
 from mcmctoffitting_tpu_torch.parallel import launch as parallel_launch
 from mcmctoffitting_tpu_torch.parallel import mesh as parallel_mesh
 from mcmctoffitting_tpu_torch.utils import chain_io, data_io, devtime, parity
-from mcmctoffitting_tpu_torch.utils import profiling
 from mcmctoffitting_tpu_torch.utils import ppc as ppc_mod
 
 N_WALKERS, N_RUNS, N_DRAWS = 256, 4, 200_000
@@ -528,32 +531,31 @@ def phase_counts_rates(dev, smi):
         p_ms = devtime.graph_ms(plain, launches=5)
         k_us, p_us = devtime.enqueue_us(kernel), devtime.enqueue_us(
             plain, calls=20)
-        # a segment of 10 DE steps with the spans on: one launch for
-        # every mcmctof.logp call
+        # a segment of 10 DE steps: one launch a forward evaluation
         logp = problem.make_log_prob_fn(observed)
         state = sampler.init_state(
             p0, logp, generator=torch.Generator(dev).manual_seed(2),
             eval_generator=torch.Generator().manual_seed(3))
         launches = counts_rates.launches
-        with profiling.spans() as rec:
+        with counting_evaluations() as n:
             sampler.run_mcmc(state, 10, logp, move="de")
         torch.cuda.synchronize()
-        n_logp = rec.summary()["mcmctof.logp"]["calls"]
         n_launched = counts_rates.launches - launches
-        require(n_launched == n_logp, f"phase 25 ({name}): {n_launched} "
-                f"launches in {n_logp} mcmctof.logp calls")
+        require(n_launched == n["forward"], f"phase 25 ({name}): "
+                f"{n_launched} launches in {n['forward']} forward "
+                f"evaluations")
         out[name] = {"shape": [w_, f], "max_abs_err": err,
                      "kernel_ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "enqueue_us": k_us,
-                     "plain_enqueue_us": p_us, "segment_logp_calls": n_logp,
+                     "plain_enqueue_us": p_us, "segment_evaluations": n,
                      "segment_launches": n_launched}
         log(f"phase 25 ({smi}): {name} rates ({w_}, F = {f}, truncated "
             f"{spec.truncated}, {spec.moment_closure}): max |got - want| "
             f"{err} over every field; kernel {k_ms:.5f} ms, plain stage {p_ms:.5f} ms "
             f"(device), bound {b_ms:.5f} ms ({b_by}, {n_bytes} B), "
             f"enqueue {k_us:.1f} us (plain {p_us:.1f} us); a segment of 10 "
-            f"DE steps, spans on: {n_launched} launches, {n_logp} "
-            f"mcmctof.logp calls")
+            f"DE steps: {n_launched} launches, {n['forward']} forward "
+            f"evaluations of {n['calls']} asked for")
     return out
 
 
@@ -651,35 +653,31 @@ def onebd_problem(spec, likelihood, dev):
 def fit(spec, likelihood, dev, truth, n_warm, n_timed, smi, label,
         max_bad=0, make_problem=simult_problem):
     """Full-width DE fit through the entry points; returns walker-steps/s,
-    the acceptance, and the launch counts of the fit beside its number of
-    log-prob evaluations: every count is set to 0 once the data are
-    synthesised and read when the chain has run."""
+    the acceptance, and the launch counts of the fit beside its forward
+    and log-prob evaluations (:func:`counting_evaluations`): every count
+    starts once the data are synthesised and is read when the chain has
+    run."""
     prob = make_problem(spec, likelihood, dev)
     obs = data_io.synthesize_observed(9, prob, truth)
-    logp_fn = prob.make_log_prob_fn(obs)
-    evals = [0]
-
-    def logp(thetas, generator):
-        evals[0] += 1
-        return logp_fn(thetas, generator)
-
+    logp = prob.make_log_prob_fn(obs)
     reset_counts()
-    gen = torch.Generator(dev).manual_seed(1)
-    walkers = prob.initial_walkers_from_observed(gen, N_WALKERS, obs)
-    state = sampler.init_state(walkers, logp, generator=gen,
-                               eval_generator=torch.Generator()
-                               .manual_seed(2))
-    n_bad = int((~torch.isfinite(state.log_probs)).sum())
-    log(f"{label}: {likelihood} likelihood: {n_bad} of {N_WALKERS} "
-        f"initial log-probs non-finite")
-    require(n_bad <= max_bad,
-            f"finite initial log-probs ({label}, {likelihood}: {n_bad} not)")
-    warm = sampler.run_mcmc(state, n_warm, logp, move="de")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    chain = sampler.run_mcmc(warm.state, n_timed, logp, move="de")
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with counting_evaluations() as n:
+        gen = torch.Generator(dev).manual_seed(1)
+        walkers = prob.initial_walkers_from_observed(gen, N_WALKERS, obs)
+        state = sampler.init_state(walkers, logp, generator=gen,
+                                   eval_generator=torch.Generator()
+                                   .manual_seed(2))
+        n_bad = int((~torch.isfinite(state.log_probs)).sum())
+        log(f"{label}: {likelihood} likelihood: {n_bad} of {N_WALKERS} "
+            f"initial log-probs non-finite")
+        require(n_bad <= max_bad, f"finite initial log-probs ({label}, "
+                f"{likelihood}: {n_bad} not)")
+        warm = sampler.run_mcmc(state, n_warm, logp, move="de")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain = sampler.run_mcmc(warm.state, n_timed, logp, move="de")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     acc = ((warm.n_accepted + chain.n_accepted).sum().item()
            / (N_WALKERS * (n_warm + n_timed)))
     require(chain.positions.shape == (n_timed, N_WALKERS, prob.n_dim)
@@ -692,8 +690,46 @@ def fit(spec, likelihood, dev, truth, n_warm, n_timed, smi, label,
         f"warm; acceptance {acc:.3f}; final median logp "
         f"{chain.log_probs[-1].median().item():.6g}")
     used = read_counts()
-    used["log_prob_evaluations"] = evals[0]
+    used.update(forward_evaluations=n["forward"],
+                log_prob_evaluations=n["calls"])
     return rate, acc, used
+
+
+@contextlib.contextmanager
+def counting_evaluations():
+    """Count the forward evaluations of the block: the calls of
+    ``JointFitProblem.log_prob_eager`` (a graph's warm-up and capture
+    among them, each launching what an eager evaluation launches) and of
+    its ``run_spectra`` outside one (a CLI synthesising its data).  A
+    replay of a captured graph runs no stage and calls no kernel wrapper.
+    Yields a dict that holds, at the block's end, ``forward`` and
+    ``calls``: the evaluations asked for (``forward`` less each capture's
+    warm-up and capture, plus the replays, one of which follows each
+    capture)."""
+    n, inside = {"forward": 0}, [0]
+    cls = problem_mod.JointFitProblem
+    eager, run_spectra = cls.log_prob_eager, cls.run_spectra
+
+    def counted_eager(self, *args, **kwargs):
+        n["forward"] += 1
+        inside[0] += 1
+        try:
+            return eager(self, *args, **kwargs)
+        finally:
+            inside[0] -= 1
+
+    def counted_spectra(self, *args, **kwargs):
+        n["forward"] += not inside[0]
+        return run_spectra(self, *args, **kwargs)
+
+    graphs = (log_prob_graph.captures, log_prob_graph.replays)
+    cls.log_prob_eager, cls.run_spectra = counted_eager, counted_spectra
+    try:
+        yield n
+    finally:
+        cls.log_prob_eager, cls.run_spectra = eager, run_spectra
+        n["calls"] = (n["forward"] - 2 * (log_prob_graph.captures - graphs[0])
+                      + log_prob_graph.replays - graphs[1])
 
 
 def add_counts(*used):
@@ -938,14 +974,14 @@ def phase_onebd(dev, smi, rate, acc, launches):
             "phase 10e (oneBD, hardcore counts)",
             max_bad=0 if likelihood == "poisson" else N_WALKERS // 50,
             make_problem=onebd_problem)
-        n_evals = used[likelihood]["log_prob_evaluations"]
+        n_evals = used[likelihood]["forward_evaluations"]
         log(f"phase 10e: launches during the {likelihood} fit: "
             f"{used[likelihood]}")
         require(used[likelihood]["poisson"] == 2 * n_evals
                 and used[likelihood]["tof_hist"] == n_evals
                 and used[likelihood]["counts_rates"] == n_evals,
                 "K1 launched twice, K2 and the rate kernel once per "
-                "log-prob evaluation")
+                "forward evaluation")
     launches["onebd_hardcore_counts"] = add_counts(*used.values())
 
     key = "onebd_mc_default_reference"
@@ -955,7 +991,7 @@ def phase_onebd(dev, smi, rate, acc, launches):
         make_problem=onebd_problem)
     log(f"phase 10f: launches during the oneBD mc fit: "
         f"{launches['onebd_mc_default']}")
-    n_evals = launches["onebd_mc_default"]["log_prob_evaluations"]
+    n_evals = launches["onebd_mc_default"]["forward_evaluations"]
     require(launches["onebd_mc_default"]["poisson"] == n_evals
             and launches["onebd_mc_default"]["tof_hist"] == n_evals,
             "K1 (background) and K2 launched once per evaluation")
@@ -1034,45 +1070,22 @@ class _Tee(io.TextIOBase):
 
 def run_cli(module, argv, where, label):
     """One in-process run of a CLI in ``where``; returns (result dict,
-    printed text, forward evaluations, launch counts), the counts set to 0
-    just before it and read just after.  A forward evaluation is a call
-    of the problem's ``log_prob`` (on counts a replay of its captured graph
-    from a shape's second call on, which calls no Python stage), and a
-    call of its ``run_spectra`` outside one (the CLI synthesising its
-    data)."""
-    evals, inside = [0], [0]
-    run_spectra = problem_mod.JointFitProblem.run_spectra
-    log_prob = problem_mod.JointFitProblem.log_prob
-
-    def counted(self, *args, **kwargs):
-        evals[0] += not inside[0]
-        return run_spectra(self, *args, **kwargs)
-
-    def counted_log_prob(self, *args, **kwargs):
-        evals[0] += 1
-        inside[0] += 1
-        try:
-            return log_prob(self, *args, **kwargs)
-        finally:
-            inside[0] -= 1
-
+    printed text, evaluations (:func:`counting_evaluations`), launch
+    counts), the counts set to 0 just before it and read just after."""
     cwd = os.getcwd()
     tee = _Tee(sys.stdout)
-    problem_mod.JointFitProblem.run_spectra = counted
-    problem_mod.JointFitProblem.log_prob = counted_log_prob
     os.chdir(where)
     reset_counts()
     try:
-        with contextlib.redirect_stdout(tee):
+        with counting_evaluations() as n, contextlib.redirect_stdout(tee):
             out = module.main(argv)
         torch.cuda.synchronize()
         used = read_counts()
     finally:
         os.chdir(cwd)
-        problem_mod.JointFitProblem.run_spectra = run_spectra
-        problem_mod.JointFitProblem.log_prob = log_prob
-    log(f"{label}: {evals[0]} forward evaluations; launches {used}")
-    return out, tee.buf.getvalue(), evals[0], used
+    log(f"{label}: {n['forward']} forward evaluations of {n['calls']} "
+        f"asked for; launches {used}")
+    return out, tee.buf.getvalue(), n, used
 
 
 CLI_FULL = ["-nWalkers", str(N_WALKERS), "-nDrawsPerEval", str(N_DRAWS),
@@ -1109,15 +1122,17 @@ def phase_cli(smi, tmp, rate, launches):
         require(len(rate_lines) == 1 and rate_lines[0][
             "walker_steps_per_sec"] == out["walker_steps_per_sec"],
             f"{label}: the CLI printed its walker-steps/s")
-        require(used["tof_hist"] == evals and evals >= 2 + 2 * 12,
+        require(used["tof_hist"] == evals["forward"]
+                and evals["calls"] >= 2 + 2 * 12,
                 f"{label}: K2 launched once per forward evaluation")
-        require(used["poisson"] == k1_per_eval * evals,
+        require(used["poisson"] == k1_per_eval * evals["forward"],
                 f"{label}: K1 launched {k1_per_eval} times per evaluation")
         require(used["weighted_hist"] == used["transport_moments"] == 0
                 and used["K2-bwd"] == 0,
                 f"{label}: K3, K4 and K2's backward are off the CLI's path")
         rate[f"cli_{name}"] = out["walker_steps_per_sec"]
-        launches[f"cli_{name}"] = dict(used, forward_evaluations=evals)
+        launches[f"cli_{name}"] = dict(used,
+                                       forward_evaluations=evals["forward"])
         log(f"{label} ({smi}): {out['walker_steps_per_sec']:.1f} "
             f"walker-steps/s (the CLI's own line: 12 steps x {N_WALKERS} "
             f"walkers over its phases, chain text and checkpoints "
@@ -1320,10 +1335,11 @@ def share_grid(gpu_problem, cpu_problem):
     fwd_g, fwd_c = gpu_problem.forward, cpu_problem.forward
     own = fwd_g.grid_and_mean
 
-    def grid_and_mean(params, generator):
-        grids, means = own(params, generator)
+    def grid_and_mean(params, generator, **rows):
+        grids, means = own(params, generator, **rows)
         with torch.no_grad():
-            c_grids, c_means = fwd_c.grid_and_mean(params.cpu(), generator)
+            c_grids, c_means = fwd_c.grid_and_mean(params.cpu(), generator,
+                                                   **rows)
         return (grids + (c_grids.to(grids.device) - grids).detach(),
                 means + (c_means.to(means.device) - means).detach())
 
@@ -1422,7 +1438,7 @@ def phase_gradient_cli(smi, tmp, rate, launches):
         # one K2 forward and one backward per gradient evaluation; the
         # synthetic data take one more forward, without a gradient
         require(used["K2-bwd"] == n_grad and used["tof_hist"] == n_grad + 1
-                and evals == n_grad + 1,
+                and evals["forward"] == n_grad + 1,
                 f"{label}: K2 forward and backward once per gradient "
                 f"evaluation ({used}, {n_grad} evaluations)")
         require(used["poisson"] == used["weighted_hist"]
@@ -1431,7 +1447,8 @@ def phase_gradient_cli(smi, tmp, rate, launches):
         elapsed = rate_lines[0]["elapsed_s"]
         rate[f"cli_{name}"] = out["walker_steps_per_sec"]
         rate[f"cli_{name}_grad_evals_per_s"] = n_grad / elapsed
-        launches[f"cli_{name}"] = dict(used, forward_evaluations=evals,
+        launches[f"cli_{name}"] = dict(used,
+                                       forward_evaluations=evals["forward"],
                                        gradient_evaluations=n_grad)
         log(f"{label} ({smi}): {out['walker_steps_per_sec']:.1f} "
             f"walker-steps/s (the CLI's own line: {GRAD_WARM + GRAD_MAIN} "
@@ -2175,16 +2192,22 @@ def phase_csi2016(dev, smi, tmp, rate, launches):
 PARITY_DIR = Path(__file__).resolve().parent / "perf" / "parity"
 
 
-def parity_launches(name, used, label, evals=1):
+def parity_launches(name, used, label, counted, asked=1):
     """The case's kernels (``parity.CASES`` or ``PT_CASES``) launched, the
     others not; K2 (K3 where no K2 is on the path) at least once per
-    evaluation (``evals``: the chain's, its initial refreshes aside), and
-    oneBD counts launches K1 twice per evaluation (cell counts and
-    background)."""
+    forward evaluation (``counted``: :func:`counting_evaluations`') and
+    per evaluation asked for, at least ``asked`` of them (the chain's,
+    its initial refreshes aside), a replay standing for the evaluation
+    it replays (``calls - forward``: the replays less each capture's
+    warm-up and capture; the simple family, which has no graph, counts
+    none of either); oneBD counts launches K1 twice per evaluation (cell
+    counts and background)."""
     on_path = (parity.CASES.get(name) or parity.PT_CASES[name])["kernels"]
     main = "tof_hist" if "tof_hist" in on_path else "weighted_hist"
-    require(used[main] >= evals,
-            f"{label}: {main} once per evaluation on {name}'s path ({used})")
+    require(used[main] >= counted["forward"]
+            and used[main] - counted["forward"] + counted["calls"] >= asked,
+            f"{label}: {main} once per evaluation on {name}'s path ({used}, "
+            f"{counted})")
     for kernel, n in used.items():
         if kernel in on_path:
             require(n > 0, f"{label}: {kernel} launched on {name}'s path")
@@ -2223,12 +2246,13 @@ def parity_chain(name, ref, problem, smi, launches):
     batch-median SE; the tool's printed beside it)."""
     reset_counts()
     t0 = time.perf_counter()
-    pos, acc = parity.run_port_chain(ref, problem, seed=24)
+    with counting_evaluations() as n:
+        pos, acc = parity.run_port_chain(ref, problem, seed=24)
     seconds = time.perf_counter() - t0
     used = read_counts()
     ch = ref.meta["chain"]
-    parity_launches(name, used, "phase 24b",
-                    evals=2 * (ch["burnin"] + ch["main"]) + 1)
+    parity_launches(name, used, "phase 24b", n,
+                    asked=2 * (ch["burnin"] + ch["main"]) + 1)
     launches[f"parity_chain_{name}"] = used
     table = parity.dz_table(ch["summary"], pos, ref.names)
     table.update(acceptance=acc, ref_acceptance=ch["acceptance"],
@@ -2259,11 +2283,12 @@ def parity_evidence(dev, smi, launches):
     meta = ref.meta
     jax_ln_z = [r["ln_z"] for r in meta["runs"]]
     reset_counts()
-    ln_z, d_ln_z, cold, _, seconds = parity.run_port_pt(
-        meta, ref.observed, dev, seed=24)
+    with counting_evaluations() as n:
+        ln_z, d_ln_z, cold, _, seconds = parity.run_port_pt(
+            meta, ref.observed, dev, seed=24)
     used = read_counts()
-    parity_launches(name, used, "phase 24c",
-                    evals=2 * (meta["burnin"] + meta["steps"]) + 1)
+    parity_launches(name, used, "phase 24c", n,
+                    asked=2 * (meta["burnin"] + meta["steps"]) + 1)
     launches[f"parity_{name}"] = used
     ev = parity.evidence_parity(jax_ln_z, [ln_z],
                                 port_var=np.var(jax_ln_z, ddof=1))
@@ -2301,11 +2326,12 @@ def phase_parity(dev, smi, launches):
         problem = parity.build_problem(ref.meta, dev)
         reset_counts()
         t0 = time.perf_counter()
-        dens = parity.density_check(ref, problem, seed=24)
-        torch.cuda.synchronize()
+        with counting_evaluations() as n:
+            dens = parity.density_check(ref, problem, seed=24)
+            torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         used = read_counts()
-        parity_launches(name, used, "phase 24a")
+        parity_launches(name, used, "phase 24a", n)
         launches[f"parity_{name}"] = used
         row = {k: v for k, v in dens.items() if not k.startswith("port_")}
         row["seconds"] = seconds
@@ -2387,8 +2413,9 @@ def shard_rank():
                                                by_row=prob.draws_by_row)
     half = sharded(p0[::2].contiguous(), torch.Generator().manual_seed(6))
     reset_counts()
-    lp0, chain, rate = shard_fit(sharded, p0, dev)
-    torch.cuda.synchronize()
+    with counting_evaluations() as n:
+        lp0, chain, rate = shard_fit(sharded, p0, dev)
+        torch.cuda.synchronize()
     used = read_counts()
     # contract C: every rank holds the same positions
     every = parallel_mesh.all_gather_rows(chain.state.positions[None], mesh)
@@ -2396,8 +2423,7 @@ def shard_rank():
     out = {"rank": mesh.rank, "half_log_probs": half.cpu(),
            "initial_log_probs": lp0.cpu(), "positions": chain.positions.cpu(),
            "log_probs": chain.log_probs.cpu(), "same_on_ranks": same,
-           "launches": used, "rate": rate,
-           "evaluations": 2 * SHARD_STEPS + 1}
+           "launches": used, "rate": rate, "evaluations": n}
     del prob, logp, sharded, chain
     torch.cuda.empty_cache()
     _, _, loglike, logprior, p_pt = cli_sg.tof_pt_setup(0, PT_T, PT_W, dev)
@@ -2527,7 +2553,9 @@ def phase_sharding(dev, smi, tmp, rates_w, k1_phase6_ms):
         require(r["same_on_ranks"], "23c: contract C, every rank holds the "
                 "same positions")
         used = r["launches"]
-        require(used["poisson"] == used["tof_hist"] == r["evaluations"]
+        require(used["poisson"] == used["tof_hist"]
+                == r["evaluations"]["forward"]
+                and r["evaluations"]["calls"] == 2 * SHARD_STEPS + 1
                 and used["weighted_hist"] == used["transport_moments"] == 0,
                 f"23c rank {r['rank']}: K1 and K2 once per sharded "
                 f"evaluation on its shard ({used})")
@@ -2810,13 +2838,14 @@ def phase_pt(dev, smi, tmp, rate, launches):
         f"{res['pt_walker_steps_per_sec']:.1f} PT walker-steps/s "
         f"({ms_per_step:.3f} ms per step, the CLI's clock); device "
         f"{dev_ms:.3f} ms per step of {host_ms:.3f} ms (torch.profiler, "
-        f"{PT_PROFILE_STEPS} steps); {evals} forward evaluations, K1 "
+        f"{PT_PROFILE_STEPS} steps); {evals['forward']} forward "
+        f"evaluations, K1 "
         f"{per_half['poisson']:g} and K2 {per_half['tof_hist']:g} launches "
         f"per half-update; peak device memory {peak_gb:.3f} GB; initial "
         f"log-likelihoods finite on {res['initial_finite_fraction']:.4f}; "
         f"beamE span {span:.2f} keV; swap acceptance "
         f"{np.round(swaps, 4).tolist()}; ln Z {res['pt_ln_evidence']}")
-    require(evals == halves + 2 and per_half["poisson"] == 1
+    require(evals["forward"] == halves + 2 and per_half["poisson"] == 1
             and per_half["tof_hist"] == 1 and used["weighted_hist"]
             == used["transport_moments"] == used["K2-bwd"] == 0,
             f"{label}: K1 and K2 once per half-update ({used}, {evals} "
@@ -2827,7 +2856,8 @@ def phase_pt(dev, smi, tmp, rate, launches):
     require(len(swaps) == PT_T - 1 and all(0.0 <= a <= 1.0 for a in swaps),
             f"{label}: swap acceptances in [0, 1]")
     rate["cli_pt_tof"] = res["pt_walker_steps_per_sec"]
-    launches["cli_pt_tof"] = dict(used, log_like_evaluations=evals - 1,
+    launches["cli_pt_tof"] = dict(used,
+                                  log_like_evaluations=evals["forward"] - 1,
                                   half_updates=halves)
     for name in k12:
         k12[name]["launches_per_half_update"] = per_half[name]
@@ -3100,7 +3130,7 @@ def main():
             and launches["counts"]["tof_hist"] > 0,
             "K1 and K2 launched on the counts path")
     require(launches["counts"]["counts_rates"]
-            == launches["counts"]["log_prob_evaluations"],
+            == launches["counts"]["forward_evaluations"],
             "the rate kernel launched once per evaluation")
 
     # phase 8: the mc path on the ODE transport
@@ -3319,11 +3349,11 @@ def main():
         "name": "counts_rates", "route": "cuda",
         "source": "mcmctoffitting_tpu_torch/csrc/counts_rates.cu",
         "replaces": None, "launches": launches["counts"]["counts_rates"],
-        "log_prob_evaluations": launches["counts"]["log_prob_evaluations"],
+        "forward_evaluations": launches["counts"]["forward_evaluations"],
         "launches_onebd_hardcore_counts":
             launches["onebd_hardcore_counts"]["counts_rates"],
-        "log_prob_evaluations_onebd_hardcore_counts":
-            launches["onebd_hardcore_counts"]["log_prob_evaluations"],
+        "forward_evaluations_onebd_hardcore_counts":
+            launches["onebd_hardcore_counts"]["forward_evaluations"],
         "max_abs_err": rates_out["simultfit"]["max_abs_err"],
         "ms": rates_out["simultfit"]["kernel_ms"],
         "plain_ms": rates_out["simultfit"]["plain_ms"],

@@ -103,10 +103,8 @@ def k1_counters(walker_offset: int, walker_blocks, per_walker: int) -> dict:
     ``walker_offset + i`` of that batch, or with ``walker_blocks = (m,
     n)`` (m walkers of each n, a shard of every rung of a tempered
     ensemble) walker ``walker_offset + (i // m) n + i % m``.  The draw
-    then equals those rows of the larger batch's draw.  A batch that is
-    the whole batch passes no keyword: K1's launch as it is without one."""
-    if walker_offset == 0 and walker_blocks is None:
-        return {}
+    then equals those rows of the larger batch's draw; offset 0 and no
+    blocks are the whole batch's launch."""
     blocks = (None if walker_blocks is None
               else (walker_blocks[0] * per_walker,
                     walker_blocks[1] * per_walker))
@@ -721,16 +719,17 @@ class TofForward(torch.nn.Module):
         first walker in a larger batch) and ``walker_blocks``: see
         :func:`k1_counters`; the K1 draws are then those rows of the
         larger batch's."""
-        rows = ({} if walker_offset == 0 and walker_blocks is None else
-                {"walker_offset": walker_offset,
-                 "walker_blocks": walker_blocks})
-        grids, e0_means = self.grid_and_mean(params, generator, **rows)
+        grids, e0_means = self.grid_and_mean(params, generator,
+                                             walker_offset=walker_offset,
+                                             walker_blocks=walker_blocks)
         with span("mcmctof.lattice"):
             base_tof, draws = self.lattice(grids, e0_means)
         background = None
         if bg_levels is not None:
             with span("mcmctof.background"):
-                background = self.background(bg_levels, generator, **rows)
+                background = self.background(
+                    bg_levels, generator, walker_offset=walker_offset,
+                    walker_blocks=walker_blocks)
         out = self.spectra(base_tof, draws, scales, background,
                            get_pdf=get_pdf)
         if return_spectra:

@@ -35,11 +35,7 @@ of calls, and the bits are the eager path's.
 
 ``log_prob_graph.captures`` and ``log_prob_graph.replays`` count
 captures and replays; each replay runs in the span ``mcmctof.logp_graph``
-(inside ``mcmctof.logp``).  The kernel launch counters
-(``poisson.launches``, ``tof_hist_segments.launches``,
-``counts_rates.launches``) count a replay's launches as those of an
-eager evaluation: the warm-up and the capture add nothing, a replay adds
-what the captured evaluation launches.
+(inside ``mcmctof.logp``).
 """
 from __future__ import annotations
 
@@ -48,15 +44,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.cuda_poisson import poisson
-from ..ops.cuda_rates import counts_rates
-from ..ops.cuda_tof import tof_hist_segments
 from ..ops.poisson import DeviceSeeds
 from ..utils.profiling import span
 
 MAX_GRAPHS = 4
-# the launch counters of the kernels a counts evaluation launches
-_COUNTED = (poisson, tof_hist_segments, counts_rates)
 
 
 def graphable(spec, thetas) -> bool:
@@ -77,23 +68,20 @@ def graph_key(thetas, walker_offset, walker_blocks, observed) -> tuple:
 
 class Captured(NamedTuple):
     """One captured evaluation: its graph, its input and output tensors,
-    its seed words and how many rows it reads, the observed runs it
-    reads, and the launches it makes per counter."""
+    its seed words and how many rows it reads, and the observed runs it
+    reads."""
     graph: object
     thetas: torch.Tensor
     out: torch.Tensor
     seeds: DeviceSeeds
     n_seeds: int
     observed: object
-    launched: tuple
 
     def replay(self, thetas, generator) -> torch.Tensor:
         with span("mcmctof.logp_graph"):
             self.thetas.copy_(thetas)
             self.seeds.refill(generator, self.n_seeds)
             self.graph.replay()
-            for fn, n in zip(_COUNTED, self.launched):
-                fn.launches += n
             log_prob_graph.replays += 1
             return self.out.clone()
 
@@ -116,31 +104,24 @@ class GraphCache:
 def capture(eager, thetas, observed, rows: dict) -> Captured:
     """Capture ``eager(thetas, seeds, observed, **rows)`` in a CUDA graph:
     one warm-up, then the capture, both on a side stream and drawing their
-    seed words from the graph's :class:`DeviceSeeds`; the launch counters
-    as they were before."""
+    seed words from the graph's :class:`DeviceSeeds`."""
     dev = thetas.device
     with torch.cuda.device(dev):
         static = torch.empty_like(thetas,
                                   memory_format=torch.contiguous_format)
         static.copy_(thetas)
         seeds = DeviceSeeds(dev)
-        before = [fn.launches for fn in _COUNTED]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             eager(static, seeds, observed, **rows)
         torch.cuda.current_stream(dev).wait_stream(side)
         seeds.taken = 0
-        warm = [fn.launches for fn in _COUNTED]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
             out = eager(static, seeds, observed, **rows)
-        launched = tuple(fn.launches - n for fn, n in zip(_COUNTED, warm))
-        for fn, n in zip(_COUNTED, before):
-            fn.launches = n
     log_prob_graph.captures += 1
-    return Captured(graph, static, out, seeds, seeds.taken, observed,
-                    launched)
+    return Captured(graph, static, out, seeds, seeds.taken, observed)
 
 
 def log_prob_graph(problem, thetas, generator, observed, *,

@@ -6,7 +6,9 @@ and of the function it was built to replace,
 ``mcmctoffitting_tpu/ops/histogram.py::weighted_histogram``.  A CPU tensor
 takes :func:`weighted_histogram_plain`; a CUDA tensor launches
 ``csrc/weighted_hist.cu`` or raises.  ``weighted_histogram.launches``
-counts kernel launches.
+counts the wrapper's calls that launch the kernel: a call made while a
+CUDA graph is captured counts, and a replay of the graph, which calls no
+wrapper, adds nothing (``models/logp_graph.py`` counts replays).
 """
 from __future__ import annotations
 

@@ -6,7 +6,10 @@ kernel) and of the JAX package's dispatch
 tensor takes the plain version (``ops/poisson.py::poisson_ptrs``); a CUDA
 tensor launches ``csrc/poisson.cu`` or raises.  Both draw from the same
 Philox stream keyed by ``seed``, so on the card they agree element by
-element.  ``poisson.launches`` counts kernel launches.
+element.  ``poisson.launches`` counts the wrapper's calls that launch
+the kernel: a call made while a CUDA graph is captured counts, and a
+replay of the graph, which calls no wrapper, adds nothing
+(``models/logp_graph.py`` counts replays).
 """
 from __future__ import annotations
 

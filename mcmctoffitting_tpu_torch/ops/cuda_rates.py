@@ -12,7 +12,9 @@ any dtype and with or without a gradient; a CUDA device launches the
 kernel, which takes float32 parameters that do not require a gradient
 and refuses anything else, as it refuses any other device, rather than
 run the plain version's operations there.  ``counts_rates.launches``
-counts kernel launches.
+counts the wrapper's calls that launch the kernel: a call made while a
+CUDA graph is captured counts, and a replay of the graph, which calls no
+wrapper, adds nothing (``models/logp_graph.py`` counts replays).
 """
 from __future__ import annotations
 

@@ -12,7 +12,10 @@ a CUDA input needs a gradient, :class:`TofHistSegments` takes the forward
 kernel and the backward kernel ``tof_hist_bwd``: the gather of the
 output's cotangent at each sample's bin, which the forward kernels share
 one bin function with.  ``tof_hist_segments.launches`` and
-``tof_hist_segments.backward_launches`` count the launches.
+``tof_hist_segments.backward_launches`` count the wrapper's calls that
+launch each kernel: a call made while a CUDA graph is captured counts,
+and a replay of the graph, which calls no wrapper, adds nothing
+(``models/logp_graph.py`` counts replays).
 """
 from __future__ import annotations
 

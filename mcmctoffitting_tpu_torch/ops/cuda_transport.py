@@ -3,8 +3,11 @@
 Counterpart of ``mcmctoffitting_tpu/ops/pallas_forward.py``
 (``fused_transport_moments``, the TPU kernel ``_fused_kernel``).  A CPU
 tensor takes :func:`transport_moments_plain`; a CUDA tensor launches
-``csrc/transport_moments.cu`` or raises.  ``transport_moments.launches``
-counts kernel launches.  Forward only (the JAX package has no backward).
+``csrc/transport_moments.cu`` or raises.  Forward only (the JAX package
+has no backward).  ``transport_moments.launches`` counts the wrapper's
+calls that launch the kernel: a call made while a CUDA graph is captured
+counts, and a replay of the graph, which calls no wrapper, adds nothing
+(``models/logp_graph.py`` counts replays).
 """
 from __future__ import annotations
 

@@ -637,10 +637,10 @@ def test_log_prob_gradient_gpu_vs_cpu(dev, model):
     cpu, card = make("cpu"), make(dev)
     fwd_c, own = cpu.forward, card.forward.grid_and_mean
 
-    def shared(params, generator):
-        grids, means = own(params, generator)
+    def shared(params, generator, **rows):
+        grids, means = own(params, generator, **rows)
         c_grids, c_means = fwd_c.grid_and_mean(params.detach().cpu(),
-                                               generator)
+                                               generator, **rows)
         return (grids + (c_grids.to(dev) - grids).detach(),
                 means + (c_means.to(dev) - means).detach())
 

@@ -31,6 +31,7 @@ from mcmctoffitting_tpu.ops import timing as jtiming
 from mcmctoffitting_tpu_torch import sampler
 from mcmctoffitting_tpu_torch.models import forward as tforward
 from mcmctoffitting_tpu_torch.models import onebd as tonebd
+from mcmctoffitting_tpu_torch.models import simult as tsimult
 from mcmctoffitting_tpu_torch.ops import e0grid as te0grid
 from mcmctoffitting_tpu_torch.ops import timing as ttiming
 from mcmctoffitting_tpu_torch.utils import data_io as tdata_io
@@ -325,7 +326,7 @@ def test_counts_with_injected_counts_and_background(observed, monkeypatch,
 
     calls = []
 
-    def port_poisson(lam, seed, n_runs=None):
+    def port_poisson(lam, seed, n_runs=None, **counters):
         calls.append((tuple(lam.shape), n_runs))
         idx = torch.arange(lam.shape[-1], dtype=lam.dtype)
         if n_runs is None:
@@ -358,9 +359,9 @@ def test_background_seed_is_drawn_after_the_grid_seed():
     seeds = []
     real = tforward.poisson
 
-    def spy(lam, seed, n_runs=None):
+    def spy(lam, seed, n_runs=None, **counters):
         seeds.append(seed)
-        return real(lam, seed, n_runs=n_runs)
+        return real(lam, seed, n_runs=n_runs, **counters)
 
     tforward.poisson, keep = spy, tforward.poisson
     try:
@@ -564,6 +565,23 @@ STAGE_CONFIGS = [
 ]
 
 
+def _stage_problem(model, sampling, hardcore=False, transport="table",
+                   xs_mode="e0grid"):
+    """(problem, truth) of a preset on the CPU: 2,048 draws, F = N_FINE,
+    the corrected likelihood; simultFit with 4 runs at the campaign's
+    guess and N = 5e4 a run, oneBD at its synthesis truth."""
+    if model == "onebd":
+        spec = tonebd.default_spec(2048, fine_grid=N_FINE, hardcore=hardcore,
+                                   xs_mode=xs_mode, sampling=sampling)
+        return (tonebd.OneBDProblem(spec, likelihood="poisson",
+                                    device="cpu"), TRUTH)
+    spec = tsimult.default_spec(2048, fine_grid=N_FINE, transport=transport,
+                                xs_mode=xs_mode, sampling=sampling)
+    truth = np.concatenate([tsimult.GUESS_SHARED, np.full(4, 5.0e4)])
+    return (tsimult.SimultFitProblem(spec, n_runs=4, likelihood="poisson",
+                                     device="cpu"), truth)
+
+
 def _stage_spans(spec, background: bool) -> list:
     """The stage spans of one log-prob evaluation, in the forward's
     order."""
@@ -588,15 +606,12 @@ def _energy_grid_spans(spec) -> list:
 @pytest.mark.parametrize("config", STAGE_CONFIGS, ids=lambda c: "-".join(
     str(v) for v in c.values()))
 def test_stage_split_composes_to_the_log_prob(config, monkeypatch):
-    """The stage split of ``utils/stages.py`` is read from the spans of
-    real ``problem.log_prob`` calls: with the spans on, the log-prob is
-    the one with them off, bit for bit, and each stage span of the
-    configuration runs once an evaluation, inside ``mcmctof.logp``, in
-    the forward's order."""
-    from mcmctoffitting_tpu_torch.utils import profiling, stages
-    problem, truth = stages.build_problem(n_draws=2048, device="cpu",
-                                          likelihood="poisson",
-                                          fine_grid=N_FINE, **config)
+    """The stage spans of real ``problem.log_prob`` calls: with the spans
+    on, the log-prob is the one with them off, bit for bit, and each stage
+    span of the configuration runs once an evaluation, inside
+    ``mcmctof.logp``, in the forward's order."""
+    from mcmctoffitting_tpu_torch.utils import profiling
+    problem, truth = _stage_problem(**config)
     obs_arrays = tdata_io.synthesize_observed(2, problem, truth)
     obs = problem.observed_runs(obs_arrays)
     p0 = problem.initial_walkers_from_observed(

@@ -80,7 +80,7 @@ def counts_are_rates(monkeypatch):
     become deterministic and comparable walker by walker."""
     monkeypatch.setattr(jpoisson, "poisson_auto", lambda key, lam: lam)
     monkeypatch.setattr(
-        tforward, "poisson", lambda lam, seed, n_runs:
+        tforward, "poisson", lambda lam, seed, n_runs, **counters:
         lam[:, None].expand(-1, n_runs, -1))
 
 
@@ -121,7 +121,7 @@ def test_parity_with_injected_counts(jax_observed, monkeypatch):
         jpoisson, "poisson_auto", lambda key, lam:
         counts(lam, jnp.arange(lam.shape[-1])))
     monkeypatch.setattr(
-        tforward, "poisson", lambda lam, seed, n_runs:
+        tforward, "poisson", lambda lam, seed, n_runs, **counters:
         counts(lam, torch.arange(lam.shape[-1]))[:, None]
         .expand(-1, n_runs, -1))
     thetas = _thetas(4, seed=7)
