@@ -213,6 +213,19 @@ Then the counts estimator's rate stage (after phase 3b):
      operations in a replayed graph), and the host's enqueue of each;
      in a segment of 10 DE steps, one launch for every forward
      evaluation.
+Then the A contraction's kernel (after phase 25):
+ 26. csrc/a_contract.cu against the dense product (ops/rowwise.py) at
+     both counts presets' half-step shapes, on the counts path's moments
+     of 128 walkers (simultFit: 512 rows, 2,048 x 500, float32 A; oneBD
+     hardcore: 384 rows, 4,096 x 8,000, bfloat16-rounded A): every output
+     within its fmaf chain's error bound of the exact product (n + 1
+     float32 ulps of its absolute sum, n its column's nonzeros), the
+     largest gap of the kernel and of the dense product printed, and the
+     outputs whose bits differ from the dense product's counted; the
+     kernel's and the dense product's device times (a
+     replayed CUDA graph each, in turns) beside the bytes bound, and the
+     host's enqueue of each.  Phases 7b, 10e, 10f and 13 hold it to one
+     launch a forward evaluation.
 Every initial log-prob of the mc fits must be finite.
 The launch checks count a forward evaluation where the stages run
 (counting_evaluations): a counts log-prob on the card replays a captured
@@ -254,11 +267,13 @@ from mcmctoffitting_tpu_torch.models.forward import exact_rows_per_chunk
 from mcmctoffitting_tpu_torch.ops import cuda_build, cuda_hist, cuda_transport
 from mcmctoffitting_tpu_torch.ops import poisson as plain_poisson
 from mcmctoffitting_tpu_torch.ops import e0grid, stopping
+from mcmctoffitting_tpu_torch.ops.cuda_contract import a_contract
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import philox_cuda, poisson
 from mcmctoffitting_tpu_torch.ops.cuda_rates import counts_rates
 from mcmctoffitting_tpu_torch.ops.cuda_tof import (
     tof_hist_backward_variant, tof_hist_segments, tof_hist_segments_backward,
     tof_hist_segments_bwd_plain, tof_hist_segments_plain)
+from mcmctoffitting_tpu_torch.ops.rowwise import rowwise_matmul
 from mcmctoffitting_tpu_torch.parallel import distributed as parallel_dist
 from mcmctoffitting_tpu_torch.parallel import launch as parallel_launch
 from mcmctoffitting_tpu_torch.parallel import mesh as parallel_mesh
@@ -559,6 +574,88 @@ def phase_counts_rates(dev, smi):
     return out
 
 
+def phase_a_contract(dev, smi):
+    """Phase 26: the A contraction's kernel against the dense product at
+    the half-step shapes of both counts presets (the counts path's moments
+    of 128 walkers), values and device times.  Returns {preset: ...}."""
+    out = {}
+    for name, spec, problem_of, truth in (
+            ("simultfit", simult.default_spec(N_DRAWS, sampling="counts"),
+             simult_problem, np.concatenate([simult.GUESS_SHARED,
+                                             np.full(N_RUNS, 5.0e4)])),
+            ("onebd_hardcore", onebd.default_spec(N_DRAWS, hardcore=True,
+                                                  sampling="counts"),
+             onebd_problem, data_io.ONEBD_TRUTH)):
+        problem = problem_of(spec, "poisson", dev)
+        forward = problem.forward
+        observed = data_io.synthesize_observed(9, problem, truth)
+        p0 = problem.initial_walkers_from_observed(
+            torch.Generator(dev).manual_seed(1), N_WALKERS, observed)
+        grid = forward.e0grid
+        rates = forward.counts_rates(problem.shared_params(
+            p0[:N_WALKERS // 2]))
+        counts = poisson(rates.lam, (26, 27), n_runs=forward.n_runs)
+        moments, _ = e0grid.moments_from_counts(
+            grid, counts, e0grid.CountsRates(*(t[:, None] for t in rates)))
+        x = moments.reshape(-1, 4 * grid.n_fine)
+        ell = grid.ell()
+
+        def kernel():
+            return a_contract(x, ell)
+
+        def dense():
+            return rowwise_matmul(x, grid.a_matrix)
+
+        launches = a_contract.launches
+        got, want = kernel(), dense()
+        require(a_contract.launches == launches + 1,
+                "a_contract: one launch a call")
+        # each output against the exact product of the float32 values, in
+        # float32 ulps of its absolute sum |x| @ |A|: a chain of n fmaf
+        # (n the column's nonzeros) is within n + 1 of them
+        a64 = grid.a_matrix.double()
+        scale = x.double().abs() @ a64.abs()
+        exact = x.double() @ a64
+        terms = (grid.a_matrix != 0).sum(0).double() + 1.0
+
+        def ulps(v):
+            gap = (v.double() - exact).abs()
+            return torch.where(scale > 0, gap / (2.0 ** -24 * scale),
+                               torch.where(gap > 0, float("inf"), 0.0))
+
+        k_ulps, d_ulps = ulps(got), ulps(want)
+        max_ulps, dense_ulps = k_ulps.max().item(), d_ulps.max().item()
+        n_differ = int((got.view(torch.int32)
+                        != want.view(torch.int32)).sum())
+        require(bool(torch.all(k_ulps <= terms)), f"phase 26 ({name}): "
+                f"within its fmaf chain's bound of the exact product "
+                f"({max_ulps} ulps of an output's absolute sum)")
+        n, k_dim = x.shape
+        width, n_cols = ell.idx.shape
+        nnz = int((grid.a_matrix != 0).sum())
+        n_bytes = 4 * (n * k_dim + n * n_cols + 2 * width * n_cols)
+        b_ms, b_by = bound(n_bytes, 2 * n * nnz)
+        ms = devtime.graphs_in_turns({"kernel": kernel, "dense": dense})
+        k_us, d_us = devtime.enqueue_us(kernel), devtime.enqueue_us(dense)
+        out[name] = {"shape": [n, k_dim, n_cols], "nonzeros": nnz,
+                     "width": width, "max_ulps": max_ulps,
+                     "dense_max_ulps": dense_ulps,
+                     "outputs_differing": n_differ,
+                     "outputs": got.numel(), "kernel_ms": ms["kernel"],
+                     "dense_ms": ms["dense"], "bound_ms": b_ms,
+                     "bound_by": b_by, "enqueue_us": k_us,
+                     "dense_enqueue_us": d_us}
+        log(f"phase 26 ({smi}): {name} A contraction ({n} rows, {k_dim} x "
+            f"{n_cols}, {nnz} nonzeros, width {width}): at most "
+            f"{max_ulps:.3f} ulps of an output's absolute sum from the "
+            f"exact product (dense {dense_ulps:.3f}), {n_differ} of "
+            f"{got.numel()} outputs with bits other than the dense product's; "
+            f"kernel {ms['kernel']:.5f} ms, dense product "
+            f"{ms['dense']:.5f} ms (device), bound {b_ms:.5f} ms ({b_by}, "
+            f"{n_bytes} B), enqueue {k_us:.1f} us (dense {d_us:.1f} us)")
+    return out
+
+
 def in_range_bins(e, bins):
     """Bin index of every energy, -1 outside [lo, hi] (the moments'
     binning)."""
@@ -739,7 +836,7 @@ def add_counts(*used):
 
 def reset_counts():
     for fn in (poisson, tof_hist_segments, cuda_hist.weighted_histogram,
-               cuda_transport.transport_moments, counts_rates):
+               cuda_transport.transport_moments, counts_rates, a_contract):
         fn.launches = 0
     tof_hist_segments.backward_launches = 0
 
@@ -750,7 +847,8 @@ def read_counts():
             "K2-bwd": tof_hist_segments.backward_launches,
             "weighted_hist": cuda_hist.weighted_histogram.launches,
             "transport_moments": cuda_transport.transport_moments.launches,
-            "counts_rates": counts_rates.launches}
+            "counts_rates": counts_rates.launches,
+            "a_contract": a_contract.launches}
 
 
 def gpu_vs_cpu_mc(problem, cpu_problem, thetas, gen):
@@ -979,9 +1077,10 @@ def phase_onebd(dev, smi, rate, acc, launches):
             f"{used[likelihood]}")
         require(used[likelihood]["poisson"] == 2 * n_evals
                 and used[likelihood]["tof_hist"] == n_evals
-                and used[likelihood]["counts_rates"] == n_evals,
-                "K1 launched twice, K2 and the rate kernel once per "
-                "forward evaluation")
+                and used[likelihood]["counts_rates"] == n_evals
+                and used[likelihood]["a_contract"] == n_evals,
+                "K1 launched twice, K2, the rate kernel and the A "
+                "contraction's once per forward evaluation")
     launches["onebd_hardcore_counts"] = add_counts(*used.values())
 
     key = "onebd_mc_default_reference"
@@ -993,8 +1092,10 @@ def phase_onebd(dev, smi, rate, acc, launches):
         f"{launches['onebd_mc_default']}")
     n_evals = launches["onebd_mc_default"]["forward_evaluations"]
     require(launches["onebd_mc_default"]["poisson"] == n_evals
-            and launches["onebd_mc_default"]["tof_hist"] == n_evals,
-            "K1 (background) and K2 launched once per evaluation")
+            and launches["onebd_mc_default"]["tof_hist"] == n_evals
+            and launches["onebd_mc_default"]["a_contract"] == n_evals,
+            "K1 (background), K2 and the A contraction's kernel launched "
+            "once per evaluation")
 
     return {
         "a_build_seconds": build_s,
@@ -1127,6 +1228,9 @@ def phase_cli(smi, tmp, rate, launches):
                 f"{label}: K2 launched once per forward evaluation")
         require(used["poisson"] == k1_per_eval * evals["forward"],
                 f"{label}: K1 launched {k1_per_eval} times per evaluation")
+        require(used["a_contract"] == evals["forward"],
+                f"{label}: the A contraction's kernel launched once per "
+                f"evaluation")
         require(used["weighted_hist"] == used["transport_moments"] == 0
                 and used["K2-bwd"] == 0,
                 f"{label}: K3, K4 and K2's backward are off the CLI's path")
@@ -2941,6 +3045,7 @@ def main():
     k2_err = phase_tof(dev, base, draws, forward)
     phase_graph(dev, rates.lam, N_RUNS, base, draws, forward)
     rates_out = phase_counts_rates(dev, smi)
+    contract_out = phase_a_contract(dev, smi)
 
     # phases 4-5: K4 and K3 on one half-step of the mc path (128 walkers x
     # 4 runs x 200k initial energies from the forward's own draw)
@@ -3130,8 +3235,10 @@ def main():
             and launches["counts"]["tof_hist"] > 0,
             "K1 and K2 launched on the counts path")
     require(launches["counts"]["counts_rates"]
+            == launches["counts"]["a_contract"]
             == launches["counts"]["forward_evaluations"],
-            "the rate kernel launched once per evaluation")
+            "the rate kernel and the A contraction's launched once per "
+            "evaluation")
 
     # phase 8: the mc path on the ODE transport
     small = p0[:8]
@@ -3361,6 +3468,27 @@ def main():
         "library_ms": None, "enqueue_us": rates_out["simultfit"]["enqueue_us"],
         "shape": rates_out["simultfit"]["shape"],
         "at_onebd_shapes": rates_out["onebd_hardcore"]})
+    # the A contraction's kernel: no TPU original (XLA's dot in the JAX
+    # package); its launches on the counts paths of phases 7b and 10e,
+    # and its error and times against the dense product in phase 26
+    kernels.append({
+        "name": "a_contract", "route": "cuda",
+        "source": "mcmctoffitting_tpu_torch/csrc/a_contract.cu",
+        "replaces": None, "launches": launches["counts"]["a_contract"],
+        "forward_evaluations": launches["counts"]["forward_evaluations"],
+        "launches_onebd_hardcore_counts":
+            launches["onebd_hardcore_counts"]["a_contract"],
+        "forward_evaluations_onebd_hardcore_counts":
+            launches["onebd_hardcore_counts"]["forward_evaluations"],
+        "max_ulps": contract_out["simultfit"]["max_ulps"],
+        "ms": contract_out["simultfit"]["kernel_ms"],
+        "plain_ms": contract_out["simultfit"]["dense_ms"],
+        "bound_ms": contract_out["simultfit"]["bound_ms"],
+        "bound_by": contract_out["simultfit"]["bound_by"],
+        "library_ms": None,
+        "enqueue_us": contract_out["simultfit"]["enqueue_us"],
+        "shape": contract_out["simultfit"]["shape"],
+        "at_onebd_shapes": contract_out["onebd_hardcore"]})
     # phase 18d, last: -profile in a subprocess of its own
     profile_kernels = phase_profile()
     script_s = time.perf_counter() - script_t0

@@ -85,6 +85,8 @@ _SIGNATURES = {
     # h * h / 12, 0.1 * h * h, device, stream
     "mcmctof_counts_rates": [_P, _L, _L, _P, _P, _P] + [_I] * 4 + [_F] * 7
     + [_I, _P],
+    # x, idx, val, out, n_rows, k_dim, n_cols, width, device, stream
+    "mcmctof_a_contract": [_P] * 4 + [_I] * 5 + [_P],
     # device, stream: an empty kernel (the launch floor of utils/devtime.py)
     "mcmctof_empty_kernel": [_I, _P],
 }

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .cuda_contract import EllOperator, a_contract, ell_pack
 from .fixed_point import channel_shifts, dequantise, quantise
 from .pdfs import ndtr
 from .rowwise import rowwise_matmul
@@ -200,7 +201,8 @@ def cached_e0_grid_table(stopping_table, ed_binning, xs,
 
 class E0Grid(torch.nn.Module):
     """Device view of an :class:`E0GridTable`: the A operator and the
-    fine-cell edges as buffers, the scalar constants as Python floats."""
+    fine-cell edges as buffers, the scalar constants as Python floats; A
+    packed for the card's contraction at its first use (:meth:`ell`)."""
 
     def __init__(self, table: E0GridTable, *, device,
                  a_dtype: str = "float32"):
@@ -245,19 +247,44 @@ class E0Grid(torch.nn.Module):
             self.__dict__["_float64"] = copy   # not a submodule
         return copy
 
+    def ell(self) -> EllOperator:
+        """A packed by column (``ops/cuda_contract.ell_pack``) on A's
+        device, made once per device and kept out of the buffers, which
+        :meth:`float64` widens.  The packing synchronises: its first call
+        is a log-prob's first evaluation, which runs eagerly, before any
+        CUDA graph of it is captured (``models/logp_graph.py``)."""
+        packed = self.__dict__.get("_ell")
+        if packed is None or packed.idx.device != self.a_matrix.device:
+            packed = self.__dict__["_ell"] = ell_pack(self.a_matrix)
+        return packed
+
 
 def contract(grid: E0Grid, moments: torch.Tensor) -> torch.Tensor:
-    """(..., 4, F) fine-cell moments -> (..., M, Be) grid: a float32
-    matmul (rows, 4F) @ (4F, M*Be) against the static A operator, in
-    blocks of a fixed row count (``ops/rowwise.rowwise_matmul``: a
-    walker's grid does not depend on the batch it is evaluated in).  The moments are
+    """(..., 4, F) fine-cell moments -> (..., M, Be) grid: the product
+    (rows, 4F) @ (4F, M*Be) with the static A operator.  The moments are
     never rounded, whatever A was rounded to (the cubic reconstruction
     cancels across the four channel rows, so rounding the moments too
-    would cost several percent of the grid)."""
+    would cost several percent of the grid).
+
+    Dispatch, on the input: float32 moments on a CUDA device that need no
+    gradient take the sparse kernel over A's nonzeros
+    (``ops/cuda_contract.a_contract``, one launch); everything else (the
+    CPU, float64, a gradient) the dense product in blocks of a fixed row
+    count (``ops/rowwise.rowwise_matmul``).  Either way a walker's grid does
+    not depend on the batch it is evaluated in.  A non-finite moment makes
+    every column of its row NaN in the dense product (0 x inf), and only
+    the columns whose nonzeros read it in the kernel.  The counts and mc
+    moments are finite (``moments_from_counts`` and ``fine_cell_moments``
+    drop NaN), and the log-prob's NaN guard takes any row that is not."""
     lead = moments.shape[:-2]
     flat = moments.reshape(-1, 4 * grid.n_fine)
-    return rowwise_matmul(flat, grid.a_matrix).reshape(
-        lead + (grid.n_x, grid.n_ed))
+    a = grid.a_matrix
+    if (flat.is_cuda and flat.dtype == a.dtype == torch.float32
+            and not flat.requires_grad):
+        out = a_contract(flat, grid.ell())
+    else:
+        out = rowwise_matmul(flat, a)
+    return out.reshape(lead + (grid.n_x, grid.n_ed))
 
 
 def fine_cell_moments(grid: E0Grid, e0: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,16 @@
 """Matrix products whose rows do not depend on the batch.
 
-The forward's two products of a batch of rows with a static matrix (the
-A contraction of the e0grid estimators, ``ops/e0grid.contract``, and the
-timing convolutions, ``ops/timing.apply_same_matrix``) go through
-:func:`rowwise_matmul`: products of one shape, ``ROWS`` rows each, the
-last block padded with zeros.  One product over all n rows does not give
-a row the same bits for every n: cuBLAS picks its algorithm by the row
-count, and on an H100 the rows of a 512-row and of a 256-row product
-differ in their last bits (``perf/shard_bits.py``).  A shard of the
-walkers (``parallel/mesh.py``) would see them, ``rint`` turning a grid's
-last bits into whole draws.
+On the card this serves the timing convolutions
+(``ops/timing.apply_same_matrix``); the A contraction of the e0grid
+estimators (``ops/e0grid.contract``) comes here only on the CPU, in
+float64 or under a gradient, its float32 product on the card being the
+row-independent kernel of ``ops/cuda_contract.py``.  The products go in
+blocks of one shape, ``ROWS`` rows each, the last block padded with
+zeros.  One product over all n rows does not give a row the same bits for
+every n: cuBLAS picks its algorithm by the row count, and on an H100 the
+rows of a 512-row and of a 256-row product differ in their last bits
+(``perf/shard_bits.py``).  A shard of the walkers (``parallel/mesh.py``)
+would see them, ``rint`` turning a grid's last bits into whole draws.
 """
 from __future__ import annotations
 

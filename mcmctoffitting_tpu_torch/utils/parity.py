@@ -76,15 +76,17 @@ CASES = {
     "simult_counts": dict(model="simult", sampling="counts",
                           transport="table", xs_mode="e0grid",
                           chain=True, thetas_from="simult_counts",
-                          kernels=("counts_rates", "poisson", "tof_hist")),
+                          kernels=("counts_rates", "poisson", "a_contract",
+                                   "tof_hist")),
     "onebd_hardcore_counts": dict(model="onebd", sampling="counts",
                                   hardcore=True, chain=True,
                                   thetas_from="onebd_hardcore_counts",
                                   kernels=("counts_rates", "poisson",
-                                           "tof_hist")),
+                                           "a_contract", "tof_hist")),
     "simult_mc": dict(model="simult", sampling="mc", transport="table",
                       xs_mode="e0grid", chain=False,
-                      thetas_from="simult_counts", kernels=("tof_hist",)),
+                      thetas_from="simult_counts",
+                      kernels=("a_contract", "tof_hist")),
     "simult_mc_rk4_taylor": dict(model="simult", sampling="mc",
                                  transport="rk4", xs_mode="taylor",
                                  chain=False, thetas_from="simult_counts",
@@ -93,7 +95,7 @@ CASES = {
                             transport="table", xs_mode="e0grid",
                             rint_draws=False, chain=True,
                             thetas_from="simult_expected",
-                            kernels=("tof_hist", "K2-bwd")),
+                            kernels=("a_contract", "tof_hist", "K2-bwd")),
     "simult_mc_rk4_exact": dict(model="simult", sampling="mc",
                                 transport="rk4", xs_mode="exact",
                                 chain=False, thetas_from="simult_counts",
@@ -103,7 +105,7 @@ CASES = {
                                    likelihood="reference", chain=False,
                                    thetas_from="simult_counts",
                                    kernels=("counts_rates", "poisson",
-                                            "tof_hist")),
+                                            "a_contract", "tof_hist")),
     "simple_v2": dict(model="simple", simple_model="v2", sampling="mc",
                       walkers=100, chain=True, thetas_from="simple_v2",
                       kernels=("weighted_hist",)),
@@ -125,7 +127,7 @@ PT_CASES = {
                                      burnin=100, steps=300, thin=3,
                                      seeds=3,
                                      kernels=("counts_rates", "poisson",
-                                              "tof_hist")),
+                                              "a_contract", "tof_hist")),
 }
 # the evidence gate: |mean ln Z_port - mean ln Z_JAX| < LN_Z_SIGMAS x
 # sqrt(var_J / n_J + var_P / n_P), the variances over each package's seeds

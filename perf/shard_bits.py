@@ -20,7 +20,10 @@ width:
 
     python perf/shard_bits.py --out chiprun_out/shard_bits.json
 
-One JSON line on stdout.  Needs a CUDA GPU.
+One JSON line on stdout.  Needs a CUDA GPU.  On the card the A
+contraction's float32 product is now a kernel whose rows do not depend on
+the batch (``ops/cuda_contract.py``), so the two ways differ there in the
+timing convolutions alone.
 """
 import argparse
 import json

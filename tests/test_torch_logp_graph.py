@@ -26,6 +26,7 @@ from mcmctoffitting_tpu_torch.models import logp_graph, onebd, simult
 from mcmctoffitting_tpu_torch.models.logp_graph import (GraphCache,
                                                         graph_key, graphable,
                                                         log_prob_graph)
+from mcmctoffitting_tpu_torch.ops.cuda_contract import a_contract
 from mcmctoffitting_tpu_torch.ops.cuda_poisson import poisson
 from mcmctoffitting_tpu_torch.ops.cuda_rates import counts_rates
 from mcmctoffitting_tpu_torch.ops.cuda_tof import tof_hist_segments
@@ -242,20 +243,19 @@ def test_graph_equals_eager_bit_for_bit_at_the_cells_shape(dev, model):
     host, copy = torch.Generator().manual_seed(11), torch.Generator()
     copy.set_state(host.get_state())
     counters0 = _counters()
-    launches0 = [fn.launches for fn in (poisson, tof_hist_segments,
-                                        counts_rates)]
+    kernels = (poisson, tof_hist_segments, counts_rates, a_contract)
+    launches0 = [fn.launches for fn in kernels]
     got = []
     for i in range(8):
         got.append(problem.log_prob(walkers[i::8], host, obs))
-    graph_counts = [fn.launches - n for fn, n in zip(
-        (poisson, tof_hist_segments, counts_rates), launches0)]
+    graph_counts = [fn.launches - n for fn, n in zip(kernels, launches0)]
     held = [g.clone() for g in got]
     assert tuple(b - a for a, b in zip(counters0, _counters())) == (1, 7)
     want = [problem.log_prob_eager(walkers[i::8], copy, obs)
             for i in range(8)]
     torch.cuda.synchronize()
     assert torch.equal(host.get_state(), copy.get_state())
-    per_eval = (2 if model == "onebd" else 1, 1, 1)
+    per_eval = (2 if model == "onebd" else 1, 1, 1, 1)
     assert graph_counts == [3 * n for n in per_eval]
     for i, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(_bits(g), _bits(w)), f"evaluation {i}"
