@@ -55,8 +55,8 @@ def main(argv=None) -> int:
                 "program": out["numbers"],
                 "control_tf32": out["controls"]["tf32"],
                 "failed": out["failed"], "attempted": out["attempted"],
-                "walker_steps_per_s": out["metrics"]["walker_steps_per_s"]
-                ["value"]}
+                "walker_steps_per_s":
+                out["window"]["walker_steps_per_s"]}
         print(json.dumps(line), flush=True)
         lines.append(line)
     if args.out:

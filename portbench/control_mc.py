@@ -68,8 +68,8 @@ def main(argv=None) -> int:
                 **{f"control_{k}": v for k, v in out["controls"].items()},
                 "correct": out["correct"],
                 "failed": out["failed"], "attempted": out["attempted"],
-                "walker_steps_per_s": out["metrics"]["walker_steps_per_s"]
-                ["value"], "memory_peak_bytes": out["memory_peak_bytes"],
+                "walker_steps_per_s": out["window"]["walker_steps_per_s"],
+                "memory_peak_bytes": out["memory_peak_bytes"],
                 "seconds": time.perf_counter() - t0}
         print(json.dumps(line), flush=True)
         lines.append(line)

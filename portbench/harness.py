@@ -9,8 +9,14 @@ by the CLI's ``cli/_driver.py::_Fetch`` and waited for only after the
 next segment has been enqueued.  The problem comes from the
 configuration's ``programs/<model>.py``.  Everything else here is the
 benchmark's own: the observed spectra and the starting walkers are made
-from the seed by the reference of the mix's estimator
-(``reference/<sampling>.py``), which imports nothing of the program.
+from the seed by the plain reference the mix names
+(``plan.reference_of``), which imports nothing of the program.
+
+The window is the same in both modes: no synchronize but its last.  An
+untraced run then profiles ``DEVICE_SEGMENTS`` segments where its cell
+reports ``walker_steps_per_device_s``; a traced run runs
+``SPAN_SECONDS`` more with every log-prob call and segment between
+synchronizes (the spans), then its profiled sub-window.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ from .reference import de_move
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "mcmctoffitting_tpu")
 SUBWINDOW = "portbench.subwindow"
+SPAN_SECONDS = 10.0     # a traced run's synchronized window, after the window
+DEVICE_SEGMENTS = 10    # segments profiled for walker_steps_per_device_s
 
 
 def derive(seed: int, stream: int) -> int:
@@ -61,7 +69,7 @@ def build_program(plan: Plan, device):
 
 def observed_spectra(reference, camp, truth, seed: int):
     """Per-run observed counts: the model spectra of ``reference`` (the
-    module of the mix's estimator) at the campaign's truth, one Poisson
+    reference module the mix names) at the campaign's truth, one Poisson
     fluctuation each (numpy), on the CPU."""
     ref = reference.Reference(camp, None, "cpu")
     gen = torch.Generator().manual_seed(derive(seed, 0))
@@ -438,14 +446,17 @@ def card() -> dict:
 class Readings:
     """What the per-layer readers read: the cell (``plan``), the
     reference's ``campaign`` (from which a roofline works out its
-    kernel's shapes), the ensemble's ``walkers``, the traced window's
-    ``spans`` and the profiled sub-window's ``profile``."""
+    kernel's shapes), the ensemble's ``walkers``, the synchronized
+    window's ``spans``, the profiled sub-window's ``profile`` and the
+    window's own numbers (``window``: ``walker_steps_per_s`` and
+    ``segment_ms_p95``, read as an untraced run reads them)."""
     plan: Plan | None
     campaign: object
     walkers: int
     spans: dict | None
     profile: dict | None
     device_name: str
+    window: dict | None = None
 
 
 def run(plan: Plan, seed: int, seconds: float, trace: bool, *, t_start,
@@ -460,7 +471,7 @@ def run(plan: Plan, seed: int, seconds: float, trace: bool, *, t_start,
     cuda = dev.type == "cuda"
     t = plan.traffic
     steps, move = int(t["segment_steps"]), t["move"]
-    ref = plans.reference(t["sampling"])
+    ref = plans.reference_of(t)
     marks = [("interpreter and imports", time.perf_counter())]
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -494,7 +505,7 @@ def run(plan: Plan, seed: int, seconds: float, trace: bool, *, t_start,
     rng = np.random.default_rng(derive(seed, 4))
     record = {0} | set(np.flatnonzero(
         rng.random(100_000) < float(t["record_share"])).tolist())
-    recorder = Recorder(logp, move_gen, record, traced=trace)
+    recorder = Recorder(logp, move_gen, record)
     setup_s = time.perf_counter() - t_start - own
     prev = t_start
     parts = []
@@ -505,7 +516,7 @@ def run(plan: Plan, seed: int, seconds: float, trace: bool, *, t_start,
 
     host0 = host_clocks()
     win = run_segments(state, recorder, steps, move, seconds=seconds,
-                       recorder=recorder, sync_each=trace)
+                       recorder=recorder)
     host1 = host_clocks()
     n_walkers = state.positions.shape[0]
     n_steps = steps * len(win.chains)
@@ -514,14 +525,23 @@ def run(plan: Plan, seed: int, seconds: float, trace: bool, *, t_start,
                             | np.isnan(lps))) for pos, lps in win.chains)
     out = {"attempted": attempted, "failed": failed}
     device_name = torch.cuda.get_device_name(0) if cuda else "cpu"
+    window = {"walker_steps_per_s": attempted / win.wall_s,
+              "segment_ms_p95": (p95(win.segment_ms)
+                                 if len(win.segment_ms) > 1 else None)}
+    out["window"] = window
     if trace:
-        spans = {"segment_ms": win.segment_ms, "logp_ms": recorder.logp_ms,
-                 "steps": n_steps}
-        profile = (profiled_segments(win.state, logp, steps, move,
+        # the spans: every log-prob call and segment between synchronizes
+        timed = Recorder(logp, move_gen, (), traced=True)
+        swin = run_segments(win.state, timed, steps, move,
+                            seconds=min(seconds, SPAN_SECONDS),
+                            recorder=timed, sync_each=True)
+        spans = {"segment_ms": swin.segment_ms, "logp_ms": timed.logp_ms,
+                 "steps": steps * len(swin.chains)}
+        profile = (profiled_segments(swin.state, logp, steps, move,
                                      int(t["profile_segments"]))
                    if cuda else None)
         readings = Readings(plan, camp, n_walkers, spans, profile,
-                            device_name)
+                            device_name, window)
         metrics = {}
         for m in plan.per_layer:
             value = plans.metric_reader(m["name"])(readings)
@@ -534,12 +554,19 @@ def run(plan: Plan, seed: int, seconds: float, trace: bool, *, t_start,
             out["busy_s"], out["window_s"] = (profile["busy_s"],
                                               profile["window_s"])
     else:
-        values = {"walker_steps_per_s": attempted / win.wall_s,
-                  "segment_ms_p95": p95(win.segment_ms),
-                  "setup_s": setup_s}
+        values = dict(window, setup_s=setup_s)
+        wanted = {m["name"] for m in plan.end_to_end}
+        if "walker_steps_per_device_s" in wanted and cuda:
+            # the card's time a step takes, after the window: a profile
+            # slows the host that the window's own numbers time
+            dev_win = profiled_segments(win.state, logp, steps, move,
+                                        DEVICE_SEGMENTS)
+            values["walker_steps_per_device_s"] = (
+                n_walkers * dev_win["steps"] / dev_win["busy_s"])
         out["metrics"] = {m["name"]: {"value": float(values[m["name"]]),
                                       "unit": m["unit"]}
-                          for m in plan.end_to_end}
+                          for m in plan.end_to_end
+                          if values.get(m["name"]) is not None}
     out["memory_peak_bytes"] = (int(torch.cuda.max_memory_allocated(dev))
                                 if cuda else 0)
     half_n = len(win.segment_ms) // 2

@@ -1,10 +1,11 @@
 """What a cell is made of, found by name: its entry in ``BENCHMARK.json``,
 its configuration file, its traffic mix (``traffic/<name>.json``), its
 limits (``workloads/<cell>.json``), the builder of its configuration's
-model (``programs/<model>.py``), the reference of its mix's estimator
-(``reference/<sampling>.py``) and the readers of its per-layer metrics
-(``metrics/<name>.py``).  Nothing here is specific to a cell: a new
-cell, configuration, mix, model, estimator or metric is a new file."""
+model (``programs/<model>.py``), the plain reference its mix names
+(``reference/<reference>.py``, by default ``reference/<sampling>.py``)
+and the readers of its per-layer metrics (``metrics/<name>.py``).
+Nothing here is specific to a cell: a new cell, configuration, mix,
+model, reference or metric is a new file."""
 from __future__ import annotations
 
 import dataclasses
@@ -91,8 +92,11 @@ def part(kind: str, folder: str, name: str):
 
 
 def metric_reader(name: str):
-    """The ``read(readings)`` function of ``metrics/<name>.py``."""
-    return part("per-layer metric", "metrics", name).read
+    """The ``read(readings)`` function of ``metrics/<name>.py``.  A split
+    metric, ``<name>.<cells>``, is ``<name>`` read the same way in some
+    cells under a name of its own (one that moves another end-to-end
+    metric), and has the same reader."""
+    return part("per-layer metric", "metrics", name.split(".")[0]).read
 
 
 def program(model: str):
@@ -101,8 +105,11 @@ def program(model: str):
     return part("program builder for the model", "programs", model).build
 
 
-def reference(sampling: str):
-    """``reference/<sampling>.py``: the plain reference of an estimator
-    (``campaign(config, traffic)`` and ``Reference(campaign, observed,
-    device, tf32=False)``)."""
-    return part("reference for the sampling", "reference", sampling)
+def reference_of(traffic: dict):
+    """The plain reference of a traffic mix: ``reference/<name>.py``,
+    where ``name`` is the mix's optional ``reference`` key, else its
+    ``sampling`` (the estimator's own reference).  It has
+    ``campaign(config, traffic)`` and ``Reference(campaign, observed,
+    device, tf32=False)``."""
+    return part("reference", "reference",
+                traffic.get("reference", traffic["sampling"]))

@@ -244,7 +244,7 @@ def sub_windows(plan, dev):
     t = plan.traffic
     steps, move = int(t["segment_steps"]), t["move"]
     n = int(t["profile_segments"])
-    ref = plans.reference(t["sampling"])
+    ref = plans.reference_of(t)
     camp = ref.campaign(plan.config, t)
     observed = harness.observed_spectra(ref, camp, plan.config["truth"], SEED)
     p0 = torch.as_tensor(harness.starting_walkers(plan, camp, SEED),

@@ -1,7 +1,7 @@
 """The benchmark's arithmetic on synthetic inputs: the segment tail, the
-busy union and idle gaps of a trace, the per-layer readers, K2's frozen
-byte count and its roofline share, and the check's log-prob gap and DE
-proposal."""
+busy union and idle gaps of a trace, the per-layer readers, K2's and the
+A contraction's frozen byte counts and their roofline shares, and the
+check's log-prob gap and DE proposal."""
 import statistics
 from types import SimpleNamespace
 
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from portbench import harness, plan as plans
-from portbench.roofline import k2_tof_hist, peaks
+from portbench.roofline import a_contract, k2_tof_hist, peaks
 
 
 def test_p95_is_pythons_quantile():
@@ -124,6 +124,56 @@ def test_readers_with_nothing_to_read_return_nothing():
                       campaign=_campaign(1, 1, 1, 1, 1), walkers=2,
                       device_name="NVIDIA H100 80GB HBM3")
     assert plans.metric_reader("k2_tof_hist_roofline")(no_k2) is None
+
+
+@pytest.mark.parametrize("cell, shape, nbytes, ms", [
+    # 128 walkers x 4 runs of 4 x 512 moments into 10 x 50 cells; A
+    # 1.6% nonzero
+    ("simult-counts", dict(rows=512, k=2048, n_cols=500, nnz=16_772),
+     4 * (1_048_576 + 256_000) + 8 * 16_772, 0.0015978),
+    # 128 walkers x 3 runs of 4 x 1,024 moments into 20 x 400 cells; A
+    # 0.19% nonzero (the same nonzeros after its bfloat16 rounding)
+    ("onebd-hardcore-counts", dict(rows=384, k=4096, n_cols=8000,
+                                   nnz=63_612),
+     4 * (1_572_864 + 3_072_000) + 8 * 63_612, 0.0056980)])
+def test_a_contract_shape_and_bytes_are_pinned_by_hand(cell, shape, nbytes,
+                                                       ms):
+    plan = plans.resolve(cell, plans.benchmark())
+    camp = plans.reference_of(plan.traffic).campaign(plan.config,
+                                                     plan.traffic)
+    assert a_contract.shape(camp, 256) == shape
+    assert a_contract.bytes_moved(**shape) == nbytes
+    assert a_contract.operations(**shape) == 2 * shape["rows"] * shape["nnz"]
+    least, by = a_contract.bound_s(shape, peaks.peaks_of("H100"))
+    assert by == "bytes" and least * 1e3 == pytest.approx(ms, rel=1e-4)
+    if cell.startswith("onebd"):
+        assert nbytes == 19_088_352            # 19.1 MB
+        a = torch.as_tensor(camp.operator.a_matrix)
+        assert int((a.to(torch.bfloat16) != 0).sum()) == shape["nnz"]
+
+
+def test_the_a_contract_reader_reads_its_kernel_alone():
+    op = SimpleNamespace(a_matrix=np.eye(8, 6, dtype=np.float32))
+    camp = SimpleNamespace(n_runs=2, operator=op)
+    shape = dict(rows=4, k=8, n_cols=6, nnz=6)
+    kernel_s = {"void mcmctof::a_contract_kernel<4>(float const*)":
+                [2e-6, 4e-6],
+                "void tof_hist_kernel<10>": [1.0], "gemm": [1.0]}
+    r = _readings(profile={"window_s": 1.0, "busy_s": 0.5, "n_ops": 4,
+                           "steps": 1, "kernel_s": kernel_s},
+                  campaign=camp, walkers=4,
+                  device_name="NVIDIA H100 80GB HBM3")
+    least, _ = a_contract.bound_s(shape, peaks.peaks_of("H100"))
+    assert least == pytest.approx((4 * (32 + 24) + 48) / 3.35e12)
+    reader = plans.metric_reader("a_contract_roofline")
+    assert reader(r) == pytest.approx(100 * least / 3e-6)
+    # nothing to read: no profile, no launch of the kernel, no known chip
+    assert reader(_readings()) is None
+    r.profile = dict(r.profile, kernel_s={"gemm": [1e-3]})
+    assert reader(r) is None
+    r.profile["kernel_s"] = kernel_s
+    r.device_name = "cpu"
+    assert reader(r) is None
 
 
 def test_logp_gaps():

@@ -53,10 +53,49 @@ def test_every_cell_resolves_by_name(bench, cell):
     assert set(plan.limits) == {"proposal_mismatch", "logp_gap_p90",
                                 "accept_mismatch", "nonfinite_steps"}
     assert {m["name"] for m in plan.end_to_end} == {
-        "walker_steps_per_s", "segment_ms_p95", "setup_s"}
+        "walker_steps_per_device_s", "setup_s"}
     for m in plan.per_layer:
         assert callable(plans.metric_reader(m["name"]))
     assert len(plan.config["truth"]) == len(plan.config["agitators"])
+
+
+@pytest.mark.parametrize("cell", ["simult-counts", "onebd-hardcore-counts",
+                                  "simult-taylor-rk4"])
+def test_each_per_layer_metric_moves_a_metric_its_cell_reports(bench, cell):
+    """Every cell reports setup_s, another end-to-end metric and a
+    per-layer metric, and each per-layer metric it reports moves one of
+    its end-to-end metrics."""
+    plan = plans.resolve(cell, bench)
+    e2e = {m["name"] for m in plan.end_to_end}
+    assert "setup_s" in e2e and len(e2e) >= 2 and plan.per_layer
+    for m in plan.per_layer:
+        assert m["moves"] in e2e, (cell, m["name"])
+
+
+def test_a_split_metric_reads_as_its_original(bench):
+    """``<metric>.counts`` is ``<metric>`` under a name of its own."""
+    from portbench.tests.test_portbench_arithmetic import _readings
+    r = _readings(spans={"segment_ms": [10.0, 12.0], "logp_ms": [3.0] * 4,
+                         "steps": 4})
+    split = [m["name"] for m in bench["per_layer"]
+             if m["name"].endswith(".counts")]
+    assert len(split) == 6
+    for name in split:
+        original = name[: -len(".counts")]
+        assert plans.metric_reader(name)(r) == \
+            plans.metric_reader(original)(r)
+    assert plans.metric_reader("sampler_self_ms_per_step.counts")(r) == 2.5
+
+
+def test_the_window_readers_read_the_untraced_window():
+    r = harness.Readings(None, None, 256, None, None, "cpu",
+                         {"walker_steps_per_s": 2.5e5,
+                          "segment_ms_p95": 14.5})
+    assert plans.metric_reader("window_walker_steps_per_s")(r) == 2.5e5
+    assert plans.metric_reader("window_segment_ms_p95")(r) == 14.5
+    bare = harness.Readings(None, None, 256, None, None, "cpu")
+    assert plans.metric_reader("window_walker_steps_per_s")(bare) is None
+    assert plans.metric_reader("window_segment_ms_p95")(bare) is None
 
 
 def test_every_config_file_is_under_paths(bench):
@@ -107,16 +146,22 @@ def test_a_new_counts_mix_is_only_data(bench):
 
 
 def test_a_mix_on_another_estimator_names_the_reference_it_needs(bench):
-    """A later cell (mc on the ODE path) from data files alone: it
-    resolves and the program's problem builds and runs segments; the
-    harness stops at the one missing part, the mc estimator's reference,
-    and names the file to add."""
-    plan = _small(_fixture_plan(bench, "simult-taylor-rk4",
-                                "simultfit-4run", "mc-taylor-rk4-de-256"))
-    assert plan.traffic["transport"] == "rk4"
+    """A later cell (the simultFit CLI's default: mc on the stopping table
+    through the e0grid operator) from data files alone: it resolves, the
+    program's problem is the CLI's default and runs segments; the harness
+    stops at the one missing part, the reference the mix names
+    (``reference: mc_table``), and names the file to add."""
+    plan = _small(_fixture_plan(bench, "simult-mc", "simultfit-4run",
+                                "mc-table-de-256"))
+    assert plan.traffic["reference"] == "mc_table"
     problem = harness.build_program(plan, "cpu")
-    assert problem.spec.xs_mode == "taylor" and \
-        problem.spec.transport == "rk4"
+    from mcmctoffitting_tpu_torch.models import simult
+    default = simult.default_spec(int(plan.config["n_samples"]))
+    for field in ("sampling", "transport", "xs_mode", "e0_grid_fine"):
+        assert getattr(problem.spec, field) == getattr(default, field)
+    assert (problem.spec.sampling, problem.spec.transport,
+            problem.spec.xs_mode, problem.spec.e0_grid_fine) == (
+        "mc", "table", "e0grid", 256)
     from mcmctoffitting_tpu_torch import sampler
     rng = np.random.default_rng(0)
     p0 = torch.as_tensor(
@@ -131,8 +176,33 @@ def test_a_mix_on_another_estimator_names_the_reference_it_needs(bench):
     win = harness.run_segments(state, logp, 2, plan.traffic["move"],
                                n_segments=1)
     assert win.chains[0][0].shape == (2, 8, 6)
-    with pytest.raises(plans.MissingPart, match="portbench/reference/mc.py"):
+    assert np.all(np.isfinite(win.chains[0][1]))
+    with pytest.raises(plans.MissingPart,
+                       match="portbench/reference/mc_table.py"):
         _run(plan)
+
+
+@pytest.mark.parametrize("cell, module", [
+    ("simult-counts", "counts"), ("onebd-hardcore-counts", "counts"),
+    ("simult-taylor-rk4", "mc")])
+def test_each_cell_loads_the_reference_of_its_estimator(bench, cell, module):
+    """No accepted cell's mix names a reference: each loads
+    ``reference/<sampling>.py``, as before mixes could name one."""
+    plan = plans.resolve(cell, bench)
+    assert "reference" not in plan.traffic
+    assert plan.traffic["sampling"] == module
+    ref = plans.reference_of(plan.traffic)
+    assert ref is plans.part("reference", "reference", module)
+    assert ref.__file__ == str(HERE / "reference" / f"{module}.py")
+    assert callable(ref.campaign) and callable(ref.Reference)
+
+
+def test_a_named_reference_takes_the_place_of_the_estimators():
+    assert plans.reference_of({"sampling": "mc", "reference": "counts"}) \
+        is plans.reference_of({"sampling": "counts"})
+    with pytest.raises(plans.MissingPart,
+                       match="portbench/reference/mc_table.py"):
+        plans.reference_of({"sampling": "mc", "reference": "mc_table"})
 
 
 def test_a_missing_part_is_named():

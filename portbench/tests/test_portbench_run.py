@@ -64,11 +64,13 @@ def test_the_result_line_has_the_required_keys():
         names = {m["name"] for m in (plan.per_layer if trace
                                      else plan.end_to_end)}
         assert set(line["metrics"]) <= names
-        if not trace:
-            assert set(line["metrics"]) == names
-        else:   # spans only: the CPU has no trace of a device
-            assert set(line["metrics"]) == {"sampler_self_ms_per_step",
-                                            "logp_ms_per_eval"}
+        if not trace:   # the CPU has no trace of a device
+            assert set(line["metrics"]) == names - {
+                "walker_steps_per_device_s"}
+        else:   # the window and the spans only, for the same reason
+            assert set(line["metrics"]) == {
+                "window_walker_steps_per_s", "window_segment_ms_p95",
+                "sampler_self_ms_per_step.counts", "logp_ms_per_eval.counts"}
         for c in line["checks"].values():
             assert set(c) == {"value", "limit"}
         json.dumps(line)
@@ -122,7 +124,7 @@ def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):
 
 def test_a_seed_gives_the_same_inputs():
     plan = tiny("simult-counts")
-    ref = plans.reference(plan.traffic["sampling"])
+    ref = plans.reference_of(plan.traffic)
     camp = ref.campaign(plan.config, plan.traffic)
     big = 2 ** 31 + 12345
     a = harness.observed_spectra(ref, camp, plan.config["truth"], big)

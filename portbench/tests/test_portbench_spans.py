@@ -1,6 +1,6 @@
 """The readings of the program's spans (``program_spans.py``): the
 attribution of sub-window C's device operations and idle gaps on a
-synthetic event list, the four readers on synthetic readings and with
+synthetic event list, the span readers on synthetic readings and with
 nothing to read, and a traced run on the CPU that reports the three
 host-clock metrics."""
 import time
@@ -13,9 +13,8 @@ from portbench.plan import ROOT
 from portbench.program_spans import NO_SPAN, SUBWINDOW
 
 READERS = ("logp_enqueue_ms_per_eval", "sampler_enqueue_ms_per_step",
-           "rates_enqueue_ms_per_eval", "rates_ops_per_eval")
-HOST = {"logp_enqueue_ms_per_eval", "sampler_enqueue_ms_per_step",
-        "rates_enqueue_ms_per_eval"}
+           "beam_draw_ops_per_eval")
+HOST = {"logp_enqueue_ms_per_eval", "sampler_enqueue_ms_per_step"}
 
 
 def test_innermost_span_of_nested_spans():
@@ -96,27 +95,33 @@ def test_readers_on_synthetic_readings():
                          "parent": None},
         "mcmctof.logp": {"calls": 20, "total_ms": 120.0, "self_ms": 2.0,
                          "parent": "mcmctof.half_update"},
-        "mcmctof.rates": {"calls": 20, "total_ms": 80.0, "self_ms": 80.0,
-                          "parent": "mcmctof.logp"}}}
-    profile = {"n_ops": 12_000, "ops": {"mcmctof.rates": 9_000},
+        "mcmctof.beam_draw": {"calls": 20, "total_ms": 80.0,
+                              "self_ms": 80.0, "parent": "mcmctof.logp"}}}
+    profile = {"n_ops": 12_000, "ops": {"mcmctof.beam_draw": 800},
                "idle_ms": {}, "calls": {"mcmctof.logp": 20,
-                                        "mcmctof.rates": 20}}
+                                        "mcmctof.beam_draw": 20}}
     r = _readings(program, profile)
 
     def read(name):
         return plans.metric_reader(name)(r)
 
+    # host ms of a span in B over its calls; device operations launched
+    # inside a span in C over the calls of mcmctof.logp
     assert read("logp_enqueue_ms_per_eval") == pytest.approx(6.0)
     assert read("sampler_enqueue_ms_per_step") == pytest.approx(2.0)
-    assert read("rates_enqueue_ms_per_eval") == pytest.approx(4.0)
-    assert read("rates_ops_per_eval") == pytest.approx(450.0)
-    # an estimator without a rate stage: no rates readings
-    del program["spans"]["mcmctof.rates"]
-    del profile["calls"]["mcmctof.rates"]
+    assert read("beam_draw_ops_per_eval") == pytest.approx(40.0)
+    # an estimator without a beam draw (counts): no beam-draw reading
+    del program["spans"]["mcmctof.beam_draw"]
+    del profile["calls"]["mcmctof.beam_draw"]
     r = _readings(program, dict(profile, ops={}))
-    assert read("rates_enqueue_ms_per_eval") is None
-    assert read("rates_ops_per_eval") is None
+    assert read("beam_draw_ops_per_eval") is None
     assert read("logp_enqueue_ms_per_eval") == pytest.approx(6.0)
+    # a sub-window with no log-prob span: no per-evaluation readings
+    del program["spans"]["mcmctof.logp"]
+    del profile["calls"]["mcmctof.logp"]
+    r = _readings(program, dict(profile, ops={"mcmctof.beam_draw": 800}))
+    assert read("logp_enqueue_ms_per_eval") is None
+    assert read("beam_draw_ops_per_eval") is None
 
 
 @pytest.mark.parametrize("name", READERS)
@@ -147,10 +152,15 @@ def test_a_traced_run_on_the_cpu_reports_the_host_clock_metrics(
                       log=lambda s: None)
     assert out["correct"], out["checks"]
     got = set(out["metrics"])
-    assert HOST <= got and "rates_ops_per_eval" not in got
+    # the host-clock metrics (the counts cells' names for them), and none
+    # read from a device trace
+    host = {f"{name}.counts" for name in HOST}
+    assert host <= got <= host | {
+        "sampler_self_ms_per_step.counts", "logp_ms_per_eval.counts",
+        "window_walker_steps_per_s", "window_segment_ms_p95"}
     m = {k: v["value"] for k, v in out["metrics"].items()}
-    assert 0 < m["rates_enqueue_ms_per_eval"] < m["logp_enqueue_ms_per_eval"]
-    assert m["sampler_enqueue_ms_per_step"] > 0
+    assert m["logp_enqueue_ms_per_eval.counts"] > 0
+    assert m["sampler_enqueue_ms_per_step.counts"] > 0
     err = capfd.readouterr().err
     for name in ("mcmctof.step", "mcmctof.logp", "mcmctof.rates",
                  "mcmctof.k2", NO_SPAN):
