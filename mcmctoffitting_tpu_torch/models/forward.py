@@ -537,9 +537,11 @@ class TofForward(torch.nn.Module):
         """Cross-section-weighted (x, eD) grids of initial energies,
         attenuation included: (..., N) -> (..., M, Be).
 
-        'e0grid': the per-sample fine-cell moments (..., 4, F), contracted
-        with the A operator.  'taylor': the moment histograms (..., M, 4,
-        Be) of the transported energies, from kernel K4 on the ODE path
+        'e0grid': the per-sample fine-cell moments (..., 4, F) (span
+        ``mcmctof.fine_moments``), contracted with the A operator (span
+        ``mcmctof.contract``, with the attenuation).  'taylor': the
+        moment histograms (..., M, 4, Be) of the transported energies,
+        from kernel K4 on the ODE path
         (span ``mcmctof.k4``) and from the table lookup and the plain
         moment channels on ``transport='table'`` (K4 fuses the RK4 and
         cannot take table energies), contracted with the Taylor
@@ -552,8 +554,10 @@ class TofForward(torch.nn.Module):
         """
         spec = self.spec
         if spec.xs_mode == "e0grid":
-            return self.attenuate(contract(
-                self.e0grid, fine_cell_moments(self.e0grid, e0)))
+            with span("mcmctof.fine_moments"):
+                moments = fine_cell_moments(self.e0grid, e0)
+            with span("mcmctof.contract"):
+                return self.attenuate(contract(self.e0grid, moments))
         lead, n = e0.shape[:-1], e0.shape[-1]
         rows = e0.reshape(-1, n).contiguous()
         n_x, eb = spec.x_binning.n, spec.ed_binning

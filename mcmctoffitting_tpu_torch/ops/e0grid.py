@@ -301,7 +301,9 @@ def fine_cell_moments(grid: E0Grid, e0: torch.Tensor) -> torch.Tensor:
     e0_hi]) by one ``scatter_add_`` per channel, and the sums are rounded
     to float32 once.  Integer sums do not depend on the order of the
     additions, so the result is the same on every call, and on the CPU and
-    the GPU, for the same energies."""
+    the GPU, for the same energies.  ``fine_cell_moments.calls`` counts
+    the calls."""
+    fine_cell_moments.calls += 1
     f = grid.n_fine
     lead, n = e0.shape[:-1], e0.shape[-1]
     rows = e0.reshape(-1, n)
@@ -319,6 +321,9 @@ def fine_cell_moments(grid: E0Grid, e0: torch.Tensor) -> torch.Tensor:
     for k, chan in enumerate((base, base * t, base * t2, base * t2 * t)):
         out[k].scatter_add_(-1, idx, quantise(chan, shifts[k:k + 1]))
     return dequantise(out, shifts, 0).movedim(0, 1).reshape(lead + (4, f))
+
+
+fine_cell_moments.calls = 0
 
 
 def relu_split(x: torch.Tensor) -> torch.Tensor:

@@ -595,11 +595,15 @@ def _stage_spans(spec, background: bool) -> list:
 
 
 def _energy_grid_spans(spec) -> list:
-    """The spans inside ``mcmctof.energy_grid``, in order: K4 on the ODE
-    path and the Taylor contraction on 'taylor'."""
-    if spec.sampling != "mc" or spec.xs_mode != "taylor":
+    """The spans inside ``mcmctof.energy_grid``, in order: the fine-cell
+    moments and the A contraction on 'e0grid'; K4 on the ODE path and the
+    Taylor contraction on 'taylor'."""
+    if spec.sampling != "mc" or spec.xs_mode == "exact":
         return []
-    names = (["k4"] if spec.transport == "rk4" else []) + ["taylor"]
+    if spec.xs_mode == "e0grid":
+        names = ["fine_moments", "contract"]
+    else:
+        names = (["k4"] if spec.transport == "rk4" else []) + ["taylor"]
     return ["mcmctof." + n for n in names]
 
 
@@ -636,3 +640,23 @@ def test_stage_split_composes_to_the_log_prob(config, monkeypatch):
     assert all(summary[n]["parent"] == "mcmctof.energy_grid" for n in inner)
     stages_ms = sum(summary[n]["total_ms"] for n in expect)
     assert stages_ms <= summary["mcmctof.logp"]["total_ms"]
+
+
+@pytest.mark.parametrize("config", [c for c in STAGE_CONFIGS
+                                    if c.get("xs_mode", "e0grid") == "e0grid"
+                                    and not c.get("hardcore")],
+                         ids=lambda c: "-".join(str(v) for v in c.values()))
+def test_fine_cell_moments_counts_the_mc_table_evaluations(config):
+    """``fine_cell_moments.calls``: one call an mc evaluation on the
+    e0grid operator, none on the counts and expected estimators, which
+    take their moments in closed form."""
+    problem, truth = _stage_problem(**config)
+    obs_arrays = tdata_io.synthesize_observed(2, problem, truth)
+    obs = problem.observed_runs(obs_arrays)
+    p0 = problem.initial_walkers_from_observed(
+        torch.Generator().manual_seed(1), 4, obs_arrays)
+    before = te0grid.fine_cell_moments.calls
+    lp = problem.log_prob(p0, torch.Generator().manual_seed(5), obs)
+    assert torch.all(torch.isfinite(lp))
+    calls = te0grid.fine_cell_moments.calls - before
+    assert calls == (1 if config["sampling"] == "mc" else 0)
